@@ -1,7 +1,7 @@
-"""orb_slam3_ros2_tpu — a TPU-native visual(-inertial) SLAM framework.
+"""orb_slam3_ros2_tpu — a visual(-inertial) SLAM framework in JAX.
 
-A from-scratch re-design (JAX / XLA / Pallas / pjit) of the capabilities of
-EricPedley/ORB_SLAM3_ROS2 (a ROS 2 wrapper around an ORB-SLAM3 fork): ORB
+A from-scratch re-design (JAX / XLA / Pallas / shard_map) of the
+capabilities of EricPedley/ORB_SLAM3_ROS2 (a ROS 2 wrapper around an ORB-SLAM3 fork): ORB
 feature extraction and Hamming matching, monocular / stereo / visual-inertial
 tracking, local-mapping bundle adjustment, IMU preintegration with staged
 visual-inertial initialization (VIBA 1/2), loop closing with place recognition
@@ -19,12 +19,14 @@ __version__ = "0.1.0"
 
 import jax as _jax
 
-# On TPU the default matmul precision is bfloat16; the geometry/BA path
-# (projection Jacobian einsums, Schur contractions, pose solves) is f32
-# accuracy-critical — measured on the synthetic mono benchmark, bf16 matmuls
-# degrade ATE ~4.7x (0.030 m -> 0.141 m). Ops that tolerate low precision
-# opt out explicitly (the ±1 Hamming matmul in ops/matcher.py accumulates
-# exactly in f32 and pins lax.Precision.DEFAULT).
+# f32 matmuls run as full f32 everywhere: on the GPU the default precision
+# would let XLA use TF32 (about three decimal digits) for them. The
+# geometry/BA path (projection Jacobian einsums, Schur contractions, pose
+# solves) is accuracy-critical — with reduced-precision matmuls the synthetic
+# mono benchmark's ATE degraded ~4.7x (0.030 m -> 0.141 m, measured with
+# bf16 passes). This setting does not touch bf16 operands: the ±1 Hamming
+# matmul in ops/matcher.py runs on bf16 with f32 accumulation, which is
+# exact.
 _jax.config.update("jax_default_matmul_precision", "highest")
 
 

@@ -8,7 +8,7 @@ when place recognition finds overlap; the whole atlas serializes via
 `config/Stereo/EuRoC.yaml:7-13` — "if LoadFile doesn't exist … create new
 Atlas from scratch") [upstream Boost serialization].
 
-TPU-native: each map is already a flat pytree of arrays (atlas.map_state),
+Design: each map is already a flat pytree of arrays (atlas.map_state),
 so serialization is a plain `.npz` of leaves — deterministic, portable,
 versioned. The BoW database rides along for relocalization into old maps.
 """

@@ -1,4 +1,4 @@
-"""Map-to-map ICP localization — libpointmatcher side-car parity, TPU-native.
+"""Map-to-map ICP localization — libpointmatcher side-car parity.
 
 The reference localizes a freshly built map against a previously saved map
 with a libpointmatcher ICP chain (`/root/reference/config/
@@ -8,9 +8,9 @@ clouds, KDTreeMatcher correspondences; workflow described in
 point-to-plane ICP:
 
 * surface normals by k-NN PCA where the k-nearest-neighbor search is a
-  dense pairwise-distance matmul + top-k (MXU-friendly; no KD-tree — at map
+  dense pairwise-distance matmul + top-k (matmul-friendly; no KD-tree — at map
   sizes of 10^3..10^4 points a single 4096x4096 distance matrix is far
-  cheaper on TPU than pointer chasing),
+  cheaper on an accelerator than pointer chasing),
 * correspondences as a masked argmin over the same distance matmul,
 * trimmed robust weighting (distance quantile) instead of the reference's
   explicit outlier-filter stage,

@@ -1,6 +1,6 @@
 """Fixed-capacity map state (keyframes + landmarks + associations).
 
-TPU-native replacement for the reference engine's pointer-graph `Map` /
+Fixed-shape replacement for the reference engine's pointer-graph `Map` /
 `KeyFrame` / `MapPoint` objects (Atlas member maps; save/load surface
 `System.SaveAtlasToFile` `/root/reference/config/Monocular/MilkV.yaml:74-75`).
 The whole map is a pytree of fixed-capacity arrays with validity masks:
@@ -8,7 +8,7 @@ The whole map is a pytree of fixed-capacity arrays with validity masks:
 * keyframes: poses T_cw + per-feature arrays (uv, level, packed descriptors)
 * landmarks: positions + representative descriptor + view stats
 * associations: per-keyframe per-feature landmark id (-1 = none) — the
-  TPU-friendly encoding of the observation graph (inverts to a dense
+  Accelerator-friendly encoding of the observation graph (inverts to a dense
   (K, L) observation table by one scatter, which is exactly the layout
   bundle adjustment consumes)
 
@@ -290,10 +290,10 @@ def keyframe_redundancy(m: MapState, min_obs: int = 4) -> jnp.ndarray:
 def observation_matrix(m: MapState, dtype=jnp.bfloat16) -> jnp.ndarray:
     """Dense (K, L) 0/1 keyframe-observes-landmark indicator.
 
-    The TPU-native encoding of the reference's per-KeyFrame MapPoint
+    The dense encoding of the reference's per-KeyFrame MapPoint
     observation lists: one scatter from the association table. bfloat16 by
     default — 0/1 entries are exact and the downstream covisibility matmul
-    rides the MXU fast path with an f32 accumulator.
+    rides the matmul fast path with an f32 accumulator.
     """
     K, N = m.kf_obs_lm.shape
     L = m.lm_valid.shape[0]
@@ -308,7 +308,7 @@ def covisibility_matrix(m: MapState) -> jnp.ndarray:
     """(K, K) covisibility weights: number of landmarks two keyframes share
     (zero diagonal). The reference engine's central data structure — the
     per-KeyFrame mConnectedKeyFrameWeights map maintained by
-    UpdateConnections [upstream]; here it is ONE MXU matmul over the dense
+    UpdateConnections [upstream]; here it is ONE matmul over the dense
     observation indicator (O @ O.T), recomputed from the association table
     whenever needed, so it can never drift out of sync with the map.
 

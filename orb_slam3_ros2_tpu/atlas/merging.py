@@ -9,7 +9,7 @@ multi-map machinery through the Atlas save/load keys
 (`/root/reference/config/Monocular/MilkV.yaml:74-75`) and spawns the extra
 maps on tracking loss (`README.md:113-115` "map keeps getting lost").
 
-TPU-native note: merging is a rare host-side event (not a per-frame op), so
+Note: merging is a rare host-side event (not a per-frame op), so
 it runs in numpy over the fixed-capacity arrays; the merged map is a normal
 `MapState` ready for jitted consumption. Capacity overflow drops the
 lowest-value content (oldest keyframes, least-observed landmarks) rather

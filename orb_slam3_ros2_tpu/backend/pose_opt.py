@@ -10,11 +10,11 @@ rounds early-terminate in practice). Leaner budgets were measured and
 REJECTED on the end-to-end synthetic sequence: 3×3 worsens ATE 0.028→0.046,
 2×4 to 0.093 — isolated pose-refinement experiments pass at those budgets,
 but the closed loop (pose feeds matching gates feeds triangulation) needs
-the full three gated rounds. The per-frame floor on TPU is the scan's
-serial dependency chain (retract + unrolled 6×6 Cholesky per iteration),
-not FLOPs.
+the full three gated rounds. The per-frame floor is the scan's serial
+dependency chain (retract + unrolled 6×6 Cholesky per iteration), not
+FLOPs; backend/pose_opt_fused.py runs the same chain as one GPU kernel.
 
-TPU-native: all N observations are processed dense+masked; one LM step is a
+Design: all N observations are processed dense+masked; one LM step is a
 handful of (N,2,6) einsum contractions into a 6×6 system — entirely fusible
 by XLA, no per-edge graph. The round structure (re-classify outliers, keep
 optimizing) is a `lax.scan` over a static iteration count with the outlier

@@ -1,52 +1,62 @@
-"""Pose-only LM as ONE Pallas kernel — the tracking latency fix (E4).
+"""Pose-only LM as ONE GPU kernel (Pallas, Triton route) — tracking (E4).
 
-`pose_opt.optimize_pose` is algorithmically cheap (~0.3 MFLOP/frame) but the
-r2 profile measured it at 0.827 ms/frame — 34% of the tracking step at 0.1%
-of speed-of-light. The cost is pure launch/serialization overhead: each of
-the 16 LM evaluations lowers to ~10 separate XLA fusions (residual pass,
-Gram reduction, damped 6×6 solve, retract, accept/reject selects), and a
-chain of ~160 kernel launches with serial dependencies is latency-, not
-compute-, bound.
+`pose_opt.optimize_pose` is algorithmically cheap (~0.3 MFLOP per frame),
+but XLA compiles it to a serial chain of about 150 tiny fusions per frame
+inside nested `lax.scan`s: residual pass, Gram reduction, damped 6×6
+solve, retraction, accept/reject selects. Its time is set by launch
+latency and dependencies, not by arithmetic.
 
-This module re-implements the IDENTICAL algorithm (same rounds/iterations,
-same Huber weights, same accept/reject and re-classification semantics as
-`pose_opt.optimize_pose` — see that docstring for the reference mapping to
-g2o's PoseOptimization [upstream]) as a single Pallas kernel: all point
-data lives in VMEM in (row, lane)-major (k, N) layout, per-iteration vector
-work is a handful of VPU passes, the 7×7 Gram entries are 28 lane
-reductions, and the 6×6 Cholesky + SE3 retraction run as unrolled scalar
-ops in registers. One launch per frame instead of ~160.
+This module runs the IDENTICAL algorithm (same rounds and iterations, Huber
+weights, accept/reject and per-round chi² re-classification as
+`pose_opt.optimize_pose`, which maps it onto g2o's PoseOptimization
+[upstream]) as one Triton program that holds every point of the frame: the
+per-point work is elementwise over (Np,) blocks, the 7×7 Gram entries are
+28 block reductions, and the 6×6 Cholesky and SE(3) retraction are
+unrolled scalar code. The rounds and iterations are `fori_loop`s inside the
+kernel, so a frame is one launch.
 
-Numerical note: op order differs from the XLA version (reduction trees,
-scalar chains), so results agree to float tolerance, not bitwise; the
-oracle test checks pose agreement to ~1e-4 and identical inlier sets.
+Numerical note: reduction order differs from the XLA version, so results
+agree to float tolerance, not bitwise; the oracle tests check the pose to
+1e-4 and identical inlier sets.
+
+`optimize_pose_fused` is the one place that picks an implementation by
+platform: the kernel on the GPU, the plain `pose_opt.optimize_pose` on the
+CPU (the reference the tests compare against), and an error elsewhere.
 """
 
 from __future__ import annotations
 
 import functools
-from typing import Optional
 
 import jax
 import jax.numpy as jnp
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as plgpu
 
 from orb_slam3_ros2_tpu.backend import pose_opt
 from orb_slam3_ros2_tpu.backend import residuals as res
 
 _DELTA = float(pose_opt.HUBER_MONO)
+N_ROWS = 8  # per-point rows: X, Y, Z, u, v, inv_sigma2, mask, unused
+MIN_NP = 128
 
 
-def _cdiv(a: int, b: int) -> int:
-    return -(-a // b)
+def padded_points(n: int) -> int:
+    """Kernel block length for n points: the next power of two (Triton
+    block shapes are powers of two), at least MIN_NP."""
+    return max(MIN_NP, 1 << max(n - 1, 1).bit_length())
+
+
+def num_warps_for(np_: int) -> int:
+    """Warps per program: about four points per thread, so the ~25 live
+    (Np,) vectors of one evaluation stay in registers (4..16 warps)."""
+    return int(min(16, max(4, np_ // 128)))
 
 
 def _chol_solve6_scalars(h, b):
-    """Solve the damped 6x6 system with unrolled scalar Cholesky.
+    """Solve the damped 6x6 system with an unrolled scalar Cholesky.
 
-    h: 6x6 nested list of scalar traced values (symmetric, damped).
-    b: list of 6 scalars. Returns list of 6 scalars x with H x = b.
+    h: 6x6 nested list of scalars (symmetric, damped); b: 6 scalars.
     Mirrors ops.chol_small.cholesky_solve_small on plain scalars.
     """
     n = 6
@@ -76,7 +86,6 @@ def _chol_solve6_scalars(h, b):
 
 
 def _mat3_mul(A, B):
-    """3x3 @ 3x3 on nested scalar lists."""
     return [[sum(A[i][k] * B[k][j] for k in range(3)) for j in range(3)]
             for i in range(3)]
 
@@ -115,17 +124,14 @@ def _se3_retract_scalars(dx, R, t):
 
 def _normalize_scalars(R):
     """Gram-Schmidt on columns — mirrors lie.se3_normalize."""
-    def col(j):
-        return [R[0][j], R[1][j], R[2][j]]
-
     def norm(v):
         return jnp.maximum(
             jnp.sqrt(v[0] * v[0] + v[1] * v[1] + v[2] * v[2]), 1e-12)
 
-    x = col(0)
+    x = [R[0][0], R[1][0], R[2][0]]
     nx = norm(x)
     x = [e / nx for e in x]
-    y = col(1)
+    y = [R[0][1], R[1][1], R[2][1]]
     d = x[0] * y[0] + x[1] * y[1] + x[2] * y[2]
     y = [ye - d * xe for ye, xe in zip(y, x)]
     ny = norm(y)
@@ -144,25 +150,32 @@ def _huber_rho_v(chi2, delta):
     )
 
 
-def _make_kernel(Np, fx, fy, cx, cy, n_rounds, iters_per_round, chi2_th):
+_GRAM_IJ = [(i, j) for i in range(7) for j in range(i, 7)]  # 28 entries
+
+
+def _make_kernel(np_, fx, fy, cx, cy, n_rounds, iters_per_round, chi2_th):
     delta = _DELTA
 
-    def kernel(pose_ref, Xt_ref, uvt_ref, invs2_ref, mask_ref,
-               pose_out_ref, inl_ref):
-        X0 = Xt_ref[0:1, :]
-        X1 = Xt_ref[1:2, :]
-        X2 = Xt_ref[2:3, :]
-        U = uvt_ref[0:1, :]
-        V = uvt_ref[1:2, :]
-        invs2 = invs2_ref[:]
-        maskf = mask_ref[:]
+    def kernel(pose_ref, pts_ref, pose_out_ref, inl_ref):
+        X0 = pts_ref[0, :]
+        X1 = pts_ref[1, :]
+        X2 = pts_ref[2, :]
+        U = pts_ref[3, :]
+        V = pts_ref[4, :]
+        invs2 = pts_ref[5, :]
+        maskf = pts_ref[6, :]
         w_base = invs2 * maskf
 
-        R = [[pose_ref[0, 3 * i + j] for j in range(3)] for i in range(3)]
-        t = [pose_ref[0, 9 + i] for i in range(3)]
+        lane16 = jax.lax.broadcasted_iota(jnp.int32, (16,), 0)
+        pose0 = pose_ref[:]
+
+        def entry(k):  # scalar k of the packed pose
+            return jnp.sum(jnp.where(lane16 == k, pose0, 0.0))
+
+        R0 = [[entry(3 * i + j) for j in range(3)] for i in range(3)]
+        t0 = [entry(9 + i) for i in range(3)]
 
         def eval_system(R, t, w_active):
-            # residual + analytic Jacobian comps, all (1, Np) vectors
             xr = R[0][0] * X0 + R[0][1] * X1 + R[0][2] * X2 + t[0]
             yr = R[1][0] * X0 + R[1][1] * X1 + R[1][2] * X2 + t[1]
             zr = R[2][0] * X0 + R[2][1] * X1 + R[2][2] * X2 + t[2]
@@ -172,7 +185,6 @@ def _make_kernel(Np, fx, fy, cx, cy, n_rounds, iters_per_round, chi2_th):
             rx = fx * xr * iz + cx - U
             ry = fy * yr * iz + cy - V
             chi2 = (rx * rx + ry * ry) * invs2
-            # cheirality as f32 0/1: Mosaic cannot select/carry i1 vectors
             pos = jnp.where(zr > 0.05, 1.0, 0.0)
             rn = jnp.sqrt(jnp.maximum(chi2, 1e-12))
             hw = jnp.where(rn <= delta, 1.0, delta / rn)
@@ -182,67 +194,67 @@ def _make_kernel(Np, fx, fy, cx, cy, n_rounds, iters_per_round, chi2_th):
             b1 = fy * iz
             c1 = -fy * yr * iz2
             zero = jnp.zeros_like(a0)
-            # J rows incl. residual as 7th column of the Gram system
+            # J rows with the residual as the 7th column of the Gram system
             J0 = [a0, zero, c0, c0 * yr, a0 * zr - c0 * xr, -a0 * yr, rx]
             J1 = [zero, b1, c1, c1 * yr - b1 * zr, -c1 * xr, b1 * xr, ry]
-            W0 = [ww * j for j in J0]
-            W1 = [ww * j for j in J1]
-            G = [[None] * 7 for _ in range(7)]
-            for i in range(7):
-                for j in range(i, 7):
-                    G[i][j] = jnp.sum(W0[i] * J0[j] + W1[i] * J1[j])
-                    G[j][i] = G[i][j]
-            cost = jnp.sum(_huber_rho_v(chi2, delta) * (w_active > 0))
+            G = [jnp.sum(ww * (J0[i] * J0[j] + J1[i] * J1[j]))
+                 for i, j in _GRAM_IJ]
+            cost = jnp.sum(jnp.where(w_active > 0.0,
+                                     _huber_rho_v(chi2, delta), 0.0))
             return G, cost, chi2, pos
 
-        lam = jnp.float32(1e-3)
-        chi2v = jnp.zeros_like(invs2)
-        posv = jnp.ones_like(invs2)  # f32 0/1 cheirality carry
+        def gram(G, i, j):
+            return G[_GRAM_IJ.index((min(i, j), max(i, j)))]
 
-        for rnd in range(n_rounds):
-            if rnd == 0:
-                w_active = w_base
-            else:
-                inl = jnp.where(chi2v <= chi2_th, 1.0, 0.0) * posv * maskf
-                w_active = w_base * inl
+        def lm_iter(_, carry):
+            R, t, lam, cost, G, chi2v, posv, w_active = carry
+            h = [[gram(G, i, j) + (lam * gram(G, i, i) + 1e-9
+                                   if i == j else 0.0)
+                  for j in range(6)] for i in range(6)]
+            b = [gram(G, i, 6) for i in range(6)]
+            dx = [-e for e in _chol_solve6_scalars(h, b)]
+            R_c, t_c = _se3_retract_scalars(dx, R, t)
+            R_c = _normalize_scalars(R_c)
+            G_c, cost_c, chi2_c, pos_c = eval_system(R_c, t_c, w_active)
+            better = cost_c < cost
+            pick = lambda new, old: jnp.where(better, new, old)  # noqa: E731
+            R = [[pick(R_c[i][j], R[i][j]) for j in range(3)]
+                 for i in range(3)]
+            t = [pick(t_c[i], t[i]) for i in range(3)]
+            G = [pick(gc, g) for gc, g in zip(G_c, G)]
+            cost = pick(cost_c, cost)
+            chi2v = pick(chi2_c, chi2v)
+            posv = pick(pos_c, posv)
+            lam = jnp.clip(pick(lam * 0.5, lam * 4.0), 1e-7, 1e2)
+            return R, t, lam, cost, G, chi2v, posv, w_active
+
+        def round_body(rnd, carry):
+            R, t, lam, chi2v, posv = carry
+            # re-classify from the carried evaluation, never before the
+            # first round (the reference optimizes on all matches first)
+            inl = jnp.where(chi2v <= chi2_th, 1.0, 0.0) * posv * maskf
+            w_active = jnp.where(rnd == 0, w_base, w_base * inl)
             G, cost, chi2v, posv = eval_system(R, t, w_active)
+            R, t, lam, _, _, chi2v, posv, _ = jax.lax.fori_loop(
+                0, iters_per_round, lm_iter,
+                (R, t, lam, cost, G, chi2v, posv, w_active))
+            return R, t, lam, chi2v, posv
 
-            for _ in range(iters_per_round):
-                # damped solve on the carried system
-                h = [[G[i][j] + (lam * G[i][i] + 1e-9 if i == j else 0.0)
-                      for j in range(6)] for i in range(6)]
-                b = [G[i][6] for i in range(6)]
-                x = _chol_solve6_scalars(h, b)
-                dx = [-e for e in x]
-                R_c, t_c = _se3_retract_scalars(dx, R, t)
-                R_c = _normalize_scalars(R_c)
-                G_c, cost_c, chi2_c, pos_c = eval_system(R_c, t_c, w_active)
-                better = cost_c < cost
-                R = [[jnp.where(better, R_c[i][j], R[i][j])
-                      for j in range(3)] for i in range(3)]
-                t = [jnp.where(better, t_c[i], t[i]) for i in range(3)]
-                G = [[jnp.where(better, G_c[i][j], G[i][j])
-                      for j in range(7)] for i in range(7)]
-                cost = jnp.where(better, cost_c, cost)
-                # vector carries blended in f32 — a scalar-pred select of
-                # vectors fails to legalize in Mosaic ('arith.select')
-                bf = jnp.where(better, 1.0, 0.0)
-                chi2v = bf * chi2_c + (1.0 - bf) * chi2v
-                posv = bf * pos_c + (1.0 - bf) * posv
-                lam = jnp.clip(
-                    jnp.where(better, lam * 0.5, lam * 4.0), 1e-7, 1e2)
+        R, t, _, chi2v, posv = jax.lax.fori_loop(
+            0, n_rounds, round_body,
+            (R0, t0, jnp.float32(1e-3), jnp.zeros_like(invs2),
+             jnp.ones_like(invs2)))
 
         inliers = jnp.where(chi2v <= chi2_th, 1.0, 0.0) * posv * maskf
         inl_ref[:] = inliers
-        rho = _huber_rho_v(chi2v, delta)
-        for i in range(3):
-            for j in range(3):
-                pose_out_ref[0, 3 * i + j] = R[i][j]
-            pose_out_ref[0, 9 + i] = t[i]
-        pose_out_ref[0, 12] = jnp.sum(rho * inliers)
-        pose_out_ref[0, 13] = jnp.sum(inliers)
-        pose_out_ref[0, 14] = 0.0
-        pose_out_ref[0, 15] = 0.0
+        vals = [R[i][j] for i in range(3) for j in range(3)] + t + [
+            jnp.sum(_huber_rho_v(chi2v, delta) * inliers),
+            jnp.sum(inliers),
+        ]
+        out = jnp.zeros((16,), jnp.float32)
+        for k, v in enumerate(vals):
+            out = jnp.where(lane16 == k, v, out)
+        pose_out_ref[:] = out
 
     return kernel
 
@@ -256,78 +268,76 @@ def _pose_call(R0, t0, X, uv, inv_sigma2, mask,
                fx, fy, cx, cy, n_rounds, iters_per_round, chi2_th,
                interpret):
     N = X.shape[0]
-    Np = _cdiv(max(N, 8), 128) * 128
-    Xt = jnp.zeros((3, Np), jnp.float32).at[:, :N].set(
-        X.astype(jnp.float32).T)
-    uvt = jnp.zeros((2, Np), jnp.float32).at[:, :N].set(
-        uv.astype(jnp.float32).T)
-    invs2 = jnp.zeros((1, Np), jnp.float32).at[0, :N].set(
-        inv_sigma2.astype(jnp.float32))
-    maskf = jnp.zeros((1, Np), jnp.float32).at[0, :N].set(
-        mask.astype(jnp.float32))
-    pose0 = jnp.concatenate(
-        [R0.astype(jnp.float32).reshape(9), t0.astype(jnp.float32)]
-    ).reshape(1, 12)
+    np_ = padded_points(N)
+    pts = jnp.concatenate([
+        X.astype(jnp.float32).T,
+        uv.astype(jnp.float32).T,
+        inv_sigma2.astype(jnp.float32)[None],
+        mask.astype(jnp.float32)[None],
+        jnp.zeros((1, N), jnp.float32),
+    ], axis=0)
+    pts = jnp.pad(pts, ((0, 0), (0, np_ - N)))
+    pose0 = jnp.concatenate([
+        R0.astype(jnp.float32).reshape(9), t0.astype(jnp.float32),
+        jnp.zeros((4,), jnp.float32)])
 
-    kernel = _make_kernel(Np, float(fx), float(fy), float(cx), float(cy),
+    kernel = _make_kernel(np_, float(fx), float(fy), float(cx), float(cy),
                           int(n_rounds), int(iters_per_round),
                           float(chi2_th))
     pose_out, inl = pl.pallas_call(
         kernel,
-        in_specs=[
-            pl.BlockSpec(memory_space=pltpu.SMEM),
-            pl.BlockSpec(memory_space=pltpu.VMEM),
-            pl.BlockSpec(memory_space=pltpu.VMEM),
-            pl.BlockSpec(memory_space=pltpu.VMEM),
-            pl.BlockSpec(memory_space=pltpu.VMEM),
-        ],
-        out_specs=[
-            pl.BlockSpec(memory_space=pltpu.SMEM),
-            pl.BlockSpec(memory_space=pltpu.VMEM),
-        ],
         out_shape=[
-            jax.ShapeDtypeStruct((1, 16), jnp.float32),
-            jax.ShapeDtypeStruct((1, Np), jnp.float32),
+            jax.ShapeDtypeStruct((16,), jnp.float32),
+            jax.ShapeDtypeStruct((np_,), jnp.float32),
         ],
+        compiler_params=plgpu.CompilerParams(
+            num_warps=num_warps_for(np_), num_stages=1),
         interpret=interpret,
-    )(pose0, Xt, uvt, invs2, maskf)
-    return pose_out, inl[0, :N]
+        name="pose_lm_fused",
+    )(pose0, pts)
+    return pose_out, inl[:N]
 
 
-def optimize_pose_fused(
-    R0: jnp.ndarray,
-    t0: jnp.ndarray,
-    X: jnp.ndarray,
-    uv: jnp.ndarray,
-    inv_sigma2: jnp.ndarray,
-    mask: jnp.ndarray,
-    fx: float,
-    fy: float,
-    cx: float,
-    cy: float,
-    n_rounds: int = 3,
-    iters_per_round: int = 5,
-    chi2_th: float = res.CHI2_MONO,
-    interpret: Optional[bool] = None,
-) -> pose_opt.PoseOptResult:
-    """Drop-in for `pose_opt.optimize_pose`; single-kernel on TPU."""
-    if interpret is None and jax.default_backend() != "tpu":
-        return pose_opt.optimize_pose(
-            R0, t0, X, uv, inv_sigma2, mask, fx, fy, cx, cy,
-            n_rounds=n_rounds, iters_per_round=iters_per_round,
-            chi2_th=chi2_th,
-        )
+def pose_lm_kernel(R0, t0, X, uv, inv_sigma2, mask, fx, fy, cx, cy,
+                   n_rounds: int = 3, iters_per_round: int = 5,
+                   chi2_th: float = res.CHI2_MONO,
+                   interpret: bool = False) -> pose_opt.PoseOptResult:
+    """`pose_opt.optimize_pose` as one Pallas-Triton kernel launch.
+    `interpret=True` runs the same kernel through the Pallas interpreter
+    (CPU tests)."""
     pose_out, inl = _pose_call(
         R0, t0, X, uv, inv_sigma2, mask,
         float(fx), float(fy), float(cx), float(cy),
         int(n_rounds), int(iters_per_round), float(chi2_th),
         bool(interpret),
     )
-    R = pose_out[0, :9].reshape(3, 3)
-    t = pose_out[0, 9:12]
     inliers = inl > 0.5
     return pose_opt.PoseOptResult(
-        R=R, t=t, inliers=inliers,
-        n_inliers=pose_out[0, 13].astype(jnp.int32),
-        cost=pose_out[0, 12],
+        R=pose_out[:9].reshape(3, 3), t=pose_out[9:12], inliers=inliers,
+        n_inliers=pose_out[13].astype(jnp.int32), cost=pose_out[12],
     )
+
+
+def choose_impl(platform: str):
+    """The pose-LM implementation for a JAX platform name: the GPU kernel
+    on "gpu", the plain XLA reference on "cpu". Anything else is an error,
+    so no platform silently runs an untested path."""
+    if platform == "gpu":
+        return pose_lm_kernel
+    if platform == "cpu":
+        return pose_opt.optimize_pose
+    raise RuntimeError(
+        f"no pose-LM implementation for platform {platform!r} "
+        "(supported: gpu, cpu)")
+
+
+def optimize_pose_fused(R0, t0, X, uv, inv_sigma2, mask, fx, fy, cx, cy,
+                        n_rounds: int = 3, iters_per_round: int = 5,
+                        chi2_th: float = res.CHI2_MONO
+                        ) -> pose_opt.PoseOptResult:
+    """Drop-in for `pose_opt.optimize_pose`, on the platform's chosen
+    implementation (see `choose_impl`)."""
+    impl = choose_impl(jax.default_backend())
+    return impl(R0, t0, X, uv, inv_sigma2, mask, fx, fy, cx, cy,
+                n_rounds=n_rounds, iters_per_round=iters_per_round,
+                chi2_th=chi2_th)

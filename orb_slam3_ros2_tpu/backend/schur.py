@@ -1,27 +1,24 @@
-"""MXU-shaped Schur elimination core for bundle adjustment (E11).
+"""matmul-shaped Schur elimination core for bundle adjustment (E11).
 
-The r3 profile showed the BA iteration at 0.7% of speed-of-light. Two
-causes, both layout: (1) the reduced-camera contraction was an einsum over
-tensors whose MINOR dims were the 6/3 tangent sizes (`W (K,L,6,3)`,
-`"klac,mldc->kmad"`), which XLA cannot tile onto the 128x128 MXU; (2) on
-TPU the two minor-most dims of every tensor are padded to an (8, 128)
-tile, so `(K, L, 2, 6)` Jacobian tensors physically occupied ~85x their
-logical bytes and the iteration drowned in padded HBM traffic.
+Layout is the design: a reduced-camera contraction written as an einsum
+over tensors whose MINOR dims are the 6/3 tangent sizes (`W (K,L,6,3)`,
+`"klac,mldc->kmad"`) gives the compiler tiny inner dimensions that no
+matrix unit tiles well, and strided memory access everywhere else.
 
-This module is the struct-of-arrays rewrite: every large intermediate is
-laid out with the LANDMARK axis minor (lanes) — `(K, L)` residual planes,
-`(K, 2, 6, L)` Jacobians, `(3, 6K, L)` whitened cross term — so nothing
-pads, elementwise work runs at full VPU width, and the one O(K²L)
-contraction is a lane-contracted batched matmul:
+This module is the struct-of-arrays form: every large intermediate is
+laid out with the LANDMARK axis minor (contiguous) — `(K, L)` residual
+planes, `(K, 2, 6, L)` Jacobians, `(3, 6K, L)` whitened cross term — so
+elementwise work reads contiguous memory, and the one O(K²L) contraction
+is a batched matmul over the landmark axis:
 
     Hll = L Lᵀ per landmark,  M = L⁻ᵀ  (closed form, 6 (L,) planes)
     V[c] = W · M[:,c]                  ((3, 6K, L), built elementwise)
-    S_off = Σ_c V[c] V[c]ᵀ             (batch-3 (6K, L) @ (L, 6K) — MXU)
+    S_off = Σ_c V[c] V[c]ᵀ             (batch-3 (6K, L) @ (L, 6K) matmul)
     rhs  = bc − V (Mᵀ bl)
     dxl  = −M (Mᵀ bl + Vᵀ dxc)         (two lane-major matvecs)
 
-For the r3 bench problem (K=64, L=8192) the matmul is 3 × (384, 8192) @
-(8192, 384) = 7.25 GFLOP with a lane-aligned contraction dim.
+For the bench problem (K=64, L=8192) the matmul is 3 × (384, 8192) @
+(8192, 384) = 7.25 GFLOP with a contiguous contraction dim.
 
 Replaces the g2o sparse-block solver of the reference's Optimizer
 [upstream; exposed via the VIBA getters,

@@ -6,7 +6,7 @@ keyframes' pose/velocity/bias states (the fork reports the stage through
 `GetInertialBA2`, `/root/reference/src/imu_mono_realsense.cpp:491-495`)
 [upstream `Optimizer::FullInertialBA` / `LocalInertialBA`].
 
-TPU-native: landmarks are Schur-eliminated exactly as in visual BA
+Design: landmarks are Schur-eliminated exactly as in visual BA
 (backend/ba.py); the reduced camera system is *extended* with per-keyframe
 velocities and one shared bias pair, state layout
 
@@ -157,7 +157,7 @@ def vi_bundle_adjust(
     def step(carry, _):
         R, t, X, v, bg, ba, thg, lam = carry
 
-        # ----- visual part: MXU-shaped Schur elimination (backend/schur) --
+        # ----- visual part: matmul-shaped Schur elimination (backend/schur) --
         terms = schur.schur_reduce(R, t, X, p.uv, p.w, fx, fy, cx, cy, lam)
         S_pose_flat = -terms.S_off + jnp.einsum(
             "km,kij->kimj", jnp.eye(K), terms.Hcc_p

@@ -5,7 +5,7 @@ Reference parameter surface (`ORBextractor.*` keys in all 24 settings YAMLs,
 e.g. `/root/reference/config/Monocular-Inertial/EuRoC.yaml:56-69`):
 nFeatures, scaleFactor, nLevels, iniThFAST, minThFAST.
 
-TPU-native redesign of the reference's quadtree keypoint distribution
+A fixed-shape redesign of the reference's quadtree keypoint distribution
 (`DistributeOctTree` [upstream]): each level is divided into fixed
 CELL×CELL-pixel cells; per cell the best NMS-surviving corner is selected
 with a ranking bonus for clearing the *high* threshold (this reproduces the
@@ -26,7 +26,6 @@ import numpy as np
 
 from orb_slam3_ros2_tpu.ops import fast as fast_ops
 from orb_slam3_ros2_tpu.ops import orb_descriptor as desc_ops
-from orb_slam3_ros2_tpu.ops import pallas_kernels as pk
 from orb_slam3_ros2_tpu.ops import pyramid as pyr_ops
 
 CELL = 32  # spatial-uniformity cell size in pixels
@@ -72,6 +71,107 @@ jax.tree_util.register_pytree_node(
     lambda f: ((f.uv, f.level, f.angle, f.score, f.signs, f.bits, f.mask), None),
     lambda _, c: Features(*c),
 )
+
+
+PACK_GAP = 8  # zero rows between packed levels (> the 4-px stencil reach)
+
+
+def pack_layout(shapes):
+    """[(H_l, W_l)] -> (layout ((row0, H_l, W_l), ...), total_rows): every
+    pyramid level stacked vertically in one canvas of width W_0."""
+    layout = []
+    off = 0
+    for (h, w) in shapes:
+        layout.append((off, h, w))
+        off += h + PACK_GAP
+    return tuple(layout), off - PACK_GAP
+
+
+def _shifted(a: jnp.ndarray, pad: int, dy: int, dx: int, shape):
+    """a[y+dy, x+dx] over `shape`, for `a` zero-padded by `pad` on all
+    sides."""
+    h, w = shape
+    return jax.lax.slice(a, (pad + dy, pad + dx),
+                         (pad + dy + h, pad + dx + w))
+
+
+def frontend_packed(levels):
+    """All pyramid levels -> (score, keep, blur, raw) packed canvases and
+    the static layout.
+
+    Every level is written into one (ΣH_l + gaps, W_0) canvas, and FAST-9,
+    3×3 NMS and the 7×7 blur run once over the whole canvas as shifted
+    slices of one operand, which XLA fuses into a few stencil kernels. A
+    per-row table built from the static layout masks each level's 3-px
+    FAST border, so inside a level the score and keep mask equal
+    `fast.fast_score` / `fast.nms3x3` on that level exactly; the blur equals
+    `pyramid.gaussian_blur` away from a 3-px margin (zero- vs reflect
+    padding), which the extractor's EDGE margin excludes."""
+    shapes = tuple((int(l.shape[0]), int(l.shape[1])) for l in levels)
+    layout, total = pack_layout(shapes)
+    W0 = shapes[0][1]
+    raw = jnp.zeros((total, W0), jnp.float32)
+    for (r0, _, _), im_l in zip(layout, levels):
+        raw = jax.lax.dynamic_update_slice(raw, im_l.astype(jnp.float32),
+                                           (r0, 0))
+
+    # static per-row layout: row within its level (-1 in gaps), H_l, W_l
+    y_in = np.full((total,), -1, np.int32)
+    h_row = np.zeros((total,), np.int32)
+    w_row = np.zeros((total,), np.int32)
+    for (r0, h, w) in layout:
+        y_in[r0:r0 + h] = np.arange(h)
+        h_row[r0:r0 + h] = h
+        w_row[r0:r0 + h] = w
+    xs = jnp.arange(W0, dtype=jnp.int32)[None, :]
+    y_in_c = jnp.asarray(y_in)[:, None]
+    in_level = (y_in_c >= 0) & (xs < jnp.asarray(w_row)[:, None])
+    interior = (
+        (y_in_c >= fast_ops.BORDER)
+        & (y_in_c < jnp.asarray(h_row)[:, None] - fast_ops.BORDER)
+        & (xs >= fast_ops.BORDER)
+        & (xs < jnp.asarray(w_row)[:, None] - fast_ops.BORDER)
+    )
+
+    # FAST-9: max over the 16 arcs of min (bright) / -max (dark) over 9
+    P = 4
+    a = jnp.pad(raw, P)
+    d = [_shifted(a, P, dy, dx, (total, W0)) - raw
+         for dy, dx in fast_ops.CIRCLE_OFFSETS]
+    best = None
+    for k in range(16):
+        arc = [d[(k + j) % 16] for j in range(fast_ops.ARC_LEN)]
+        lo, hi = arc[0], arc[0]
+        for v in arc[1:]:
+            lo = jnp.minimum(lo, v)
+            hi = jnp.maximum(hi, v)
+        s = jnp.maximum(lo, -hi)
+        best = s if best is None else jnp.maximum(best, s)
+    score = jnp.where(interior, jnp.maximum(best, 0.0), 0.0)
+
+    # 3×3 NMS with fast.nms3x3's raster-order tie-break; neighbours outside
+    # the level read -1 exactly as nms3x3's constant padding does
+    sp = jnp.pad(jnp.where(in_level, score, -1.0), 1, constant_values=-1.0)
+    keep = in_level
+    for dy in (-1, 0, 1):
+        for dx in (-1, 0, 1):
+            if dy == 0 and dx == 0:
+                continue
+            neigh = _shifted(sp, 1, dy, dx, (total, W0))
+            if (dy, dx) < (0, 0) or (dy, dx) == (0, -1):
+                keep = keep & (score > neigh)
+            else:
+                keep = keep & (score >= neigh)
+
+    # separable 7×7 Gaussian, vertical then horizontal (pyramid's order)
+    taps = [float(v) for v in pyr_ops._gauss_kernel1d(7, 2.0)]
+    v = sum(taps[i] * _shifted(a, P, i - 3, 0, (total, W0))
+            for i in range(7))
+    vp = jnp.pad(v, ((0, 0), (P, P)))
+    blur = sum(taps[i] * jax.lax.slice(vp, (0, P + i - 3),
+                                       (total, P + i - 3 + W0))
+               for i in range(7))
+    return score, keep, blur, raw, layout
 
 
 def _level_grid_select(score: jnp.ndarray, keep: jnp.ndarray, ini_th: float,
@@ -165,24 +265,25 @@ def make_extractor(cfg: ExtractorConfig):
     scales = pyr_ops.scale_factors(cfg.n_levels, cfg.scale_factor)
 
     def extract(img: jnp.ndarray) -> Features:
-        levels = pyr_ops.build_pyramid(img, cfg.n_levels, cfg.scale_factor)
-        # packed-pyramid frontend: every level's FAST+NMS+blur in ONE
-        # Pallas launch over one stacked canvas (the 8 per-level launches
-        # were ~half the extraction stage in fixed kernel-call cost), and
-        # the aligned raw/blur canvases let the patch gather below run
-        # once over ALL levels' keypoints
-        score_c, keep_c, blur_c, raw_c, layout = pk.frontend_pass_packed(
-            levels
-        )
+        with jax.named_scope("pyramid"):
+            levels = pyr_ops.build_pyramid(img, cfg.n_levels,
+                                           cfg.scale_factor)
+        # packed-pyramid frontend: every level's FAST+NMS+blur as one
+        # stencil pass over one stacked canvas, and the aligned raw/blur
+        # canvases let the patch gather below run once over ALL levels'
+        # keypoints
+        with jax.named_scope("frontend"):
+            score_c, keep_c, blur_c, raw_c, layout = frontend_packed(levels)
         uv_all, lvl_all, sc_all, yx_all, mask_all = [], [], [], [], []
         for lvl, ((r0, h, w), budget) in enumerate(zip(layout, budgets)):
             if budget <= 0:
                 continue
             score = jax.lax.slice(score_c, (r0, 0), (r0 + h, w))
             keep = jax.lax.slice(keep_c, (r0, 0), (r0 + h, w))
-            yx, sc, valid, subpix = _level_grid_select(
-                score, keep, cfg.ini_th_fast, cfg.min_th_fast, budget
-            )
+            with jax.named_scope("select"):
+                yx, sc, valid, subpix = _level_grid_select(
+                    score, keep, cfg.ini_th_fast, cfg.min_th_fast, budget
+                )
             # clamp coords (invalid entries may sit at the border)
             yx = jnp.clip(yx, EDGE, jnp.asarray([h - EDGE - 1, w - EDGE - 1]))
             s = scales[lvl]
@@ -198,14 +299,14 @@ def make_extractor(cfg: ExtractorConfig):
             mask_all.append(valid)
 
         # one gather + one orientation + one describe call over all levels:
-        # raw patches give IC orientation, blurred patches feed BRIEF, and
-        # the angle-binned BRIEF weight matrix is read from HBM once
-        yx_packed = jnp.concatenate(yx_all, axis=0)
-        patches_raw, patches_desc = desc_ops.gather_patches_multi(
-            (raw_c, blur_c), yx_packed
-        )
-        angle = desc_ops.orientations(patches_raw)
-        signs, bits = desc_ops.describe(patches_desc, angle)
+        # raw patches give IC orientation, blurred patches feed BRIEF
+        with jax.named_scope("describe"):
+            yx_packed = jnp.concatenate(yx_all, axis=0)
+            patches_raw, patches_desc = desc_ops.gather_patches_multi(
+                (raw_c, blur_c), yx_packed
+            )
+            angle = desc_ops.orientations(patches_raw)
+            signs, bits = desc_ops.describe(patches_desc, angle)
 
         return Features(
             uv=jnp.concatenate(uv_all, axis=0),

@@ -8,7 +8,7 @@ choice by score ratio R_H = S_H/(S_H+S_F) > 0.4-0.5, then motion recovery
 and cheirality/parallax vetting. Mono configs in the snapshot exercise this
 (`/root/reference/config/Monocular/*.yaml`).
 
-TPU-native redesign: *all* RANSAC hypotheses are scored at once — a
+Fixed-shape redesign: *all* RANSAC hypotheses are scored at once — a
 (NH, 8, 9) batched SVD builds every model in one XLA op, symmetric transfer
 errors are one broadcasted einsum, and the 12 candidate motions (4 from E +
 8 from H) are triangulated and vetted as one vmapped batch. No loops, no

@@ -7,8 +7,8 @@ matches left↔right ORB features along epipolar scanlines with sub-pixel
 refinement, giving each left keypoint a metric depth z = fx·b/d used to
 spawn landmarks from a single keyframe [upstream `Frame::ComputeStereoMatches`].
 
-TPU-native: the scanline constraint is a row-band gate on the dense Hamming
-matrix (one MXU matmul for all pairs), disparity comes from the matched
+Design: the scanline constraint is a row-band gate on the dense Hamming
+matrix (one matmul for all pairs), disparity comes from the matched
 column difference, and sub-pixel refinement is a parabola fit on descriptor
 distances of neighboring candidates — all fixed-shape.
 """
@@ -147,8 +147,8 @@ def match_stereo_general(
     lapping area and triangulates with both camera models rather than
     rectifying [upstream `KannalaBrandt8::TriangulateMatches`]).
 
-    TPU-native: all pair tests are masks on the dense (N, M) Hamming matrix
-    (one MXU matmul); the epipolar test is an angular point-to-plane
+    Design: all pair tests are masks on the dense (N, M) Hamming matrix
+    (one matmul); the epipolar test is an angular point-to-plane
     distance on unit rays, so no per-pair linear solves are needed until the
     final per-feature triangulation (closed-form 2x2).
     """

@@ -31,7 +31,6 @@ from orb_slam3_ros2_tpu.backend import ba as ba_mod
 from orb_slam3_ros2_tpu.backend import pose_opt
 from orb_slam3_ros2_tpu.backend import pose_opt_fused
 from orb_slam3_ros2_tpu.geom import lie
-from orb_slam3_ros2_tpu.ops import fused_match
 from orb_slam3_ros2_tpu.ops import matcher
 from orb_slam3_ros2_tpu.ops import orb_descriptor as desc_ops
 
@@ -69,9 +68,9 @@ def gather_visible_landmarks(
 ):
     """Compact the frustum-visible landmarks into a fixed-capacity buffer.
 
-    The TPU-native replacement for the reference's grid-bucketed candidate
-    generation (SURVEY.md E3): irregular per-cell gathers are slow on TPU,
-    but ONE top_k over the visibility flags + a couple of dense gathers make
+    The fixed-shape replacement for the reference's grid-bucketed candidate
+    generation (SURVEY.md E3): instead of irregular per-cell gathers,
+    ONE top_k over the visibility flags + a couple of dense gathers make
     the downstream Hamming matmul's cost constant in total map size — only
     the elementwise projection pass stays O(L). Selection is deterministic
     (lowest landmark ids first among visible, matching the dense path's
@@ -127,17 +126,19 @@ def match_to_map(
         idx, sub_uv, sub_signs, sub_valid = gather_visible_landmarks(
             m, lm_uv, lm_vis, cap_visible, lm_signs
         )
-        res = fused_match.match_window(
-            feat_signs, feat_mask, feat_uv, sub_signs, sub_valid, sub_uv,
-            radius=radius, max_dist=max_dist, ratio=0.9, mutual=True,
+        res = matcher.match(
+            feat_signs, feat_mask, sub_signs, sub_valid, max_dist=max_dist,
+            ratio=0.9, gate=matcher.window_gate(feat_uv, sub_uv, radius),
+            mutual=True,
         )
         obs_lm = jnp.where(res.idx >= 0, idx[jnp.maximum(res.idx, 0)], -1)
     else:
         if lm_signs is None:
             lm_signs = desc_ops.signs_from_bits(m.lm_bits)
-        res = fused_match.match_window(
-            feat_signs, feat_mask, feat_uv, lm_signs, lm_vis, lm_uv,
-            radius=radius, max_dist=max_dist, ratio=0.9, mutual=True,
+        res = matcher.match(
+            feat_signs, feat_mask, lm_signs, lm_vis, max_dist=max_dist,
+            ratio=0.9, gate=matcher.window_gate(feat_uv, lm_uv, radius),
+            mutual=True,
         )
         obs_lm = res.idx
 
@@ -172,10 +173,7 @@ def track_frame(
     better stage. Semantics identical to the four staged calls the System
     used to make (`match` / widen / `pose_opt` / `track_local_map`), but
     with every host decision expressed as `lax.cond`/`where`, so the host
-    round-trips ONCE per frame instead of four times — on a remote-TPU
-    deployment each host<->device turnaround costs ~25 ms of link latency
-    (measured; see PROFILE.json note), which dominated the orchestrated
-    System's steady-state fps.
+    waits on the device ONCE per frame instead of four times.
 
     Returns (tm, res, obs_clean, summary) where summary packs
     [R(9), t(3), n_matches, n_inliers, n_kf, median_depth] into one (16,)
@@ -185,7 +183,7 @@ def track_frame(
     policy divides the inter-keyframe baseline by).
     """
     def matcher(R, t, radius):
-        return match_to_map(
+        return jax.named_call(match_to_map, name="match")(
             m, feat_uv, feat_signs, feat_mask, R, t,
             fx, fy, cx, cy, width, height, radius=radius,
             lm_signs=lm_signs, cap_visible=cap_visible,
@@ -199,14 +197,15 @@ def track_frame(
         lambda: matcher(R_pred, t_pred, 30.0),
         lambda: tm,
     )
-    res, obs_clean = track_pose(
+    pose = jax.named_call(track_pose, name="pose_lm")
+    res, obs_clean = pose(
         m, tm.obs_lm, feat_uv, feat_level, R_pred, t_pred,
         fx, fy, cx, cy, scale_factor=scale_factor,
     )
     # track-local-map: re-match at the optimized pose with a tight window,
     # refine once more, keep the better stage
     tm2 = matcher(res.R, res.t, 7.0)
-    res2, obs2 = track_pose(
+    res2, obs2 = pose(
         m, tm2.obs_lm, feat_uv, feat_level, res.R, res.t,
         fx, fy, cx, cy, scale_factor=scale_factor,
     )
@@ -560,9 +559,9 @@ def fuse_map_points(
     # no ratio test / no mutual check: the Fuse pass must let a feature match
     # a landmark whose descriptor duplicates its current association — that
     # tie IS the merge signal (upstream ORBmatcher::Fuse uses plain TH_LOW)
-    res = fused_match.match_window(
-        signs, feat_valid, feat_uv, lm_signs, lm_vis, lm_uv,
-        radius=radius, max_dist=max_dist, ratio=None, mutual=False,
+    res = matcher.match(
+        signs, feat_valid, lm_signs, lm_vis, max_dist=max_dist, ratio=None,
+        gate=matcher.window_gate(feat_uv, lm_uv, radius), mutual=False,
     )
     lm_match = res.idx  # (N,) matched landmark per feature, -1 = none
     cur = m.kf_obs_lm[kf_id]

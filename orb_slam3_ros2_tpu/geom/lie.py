@@ -1,6 +1,6 @@
 """Batched Lie-group operations: SO(3), SE(3), Sim(3).
 
-TPU-native replacement for the reference's Sophus dependency
+Fixed-shape replacement for the reference's Sophus dependency
 (`/root/reference/CMakeLists.txt:43` finds Sophus; wrapper stores poses as
 `Sophus::SE3f`, `/root/reference/src/imu_mono_realsense.cpp:544`). Instead of
 a C++ class hierarchy, every group element is a plain array (or a pair of

@@ -5,7 +5,7 @@ rtabmap (`/root/reference/launch/rtabmap.launch.py:67-84`: consumes
 `/orb_camera/imu`, publishes orientation-filled IMU on `/rtabmap/imu`,
 `use_mag: false`, `world_frame: odom`, `publish_tf: true` — the
 odom→base_link TF broadcast lives in runtime/ros_bridge.MadgwickImuNode,
-which owns the ROS surface). This module is the TPU-native
+which owns the ROS surface). This module is the JAX
 equivalent: the gradient-descent IMU update from Madgwick's 2010 report,
 expressed as a `jax.lax.scan` over a batch of samples so a whole buffered
 window filters in one fused XLA launch, plus a small host-side streaming

@@ -9,7 +9,7 @@ Frequency}` and extrinsics `IMU.T_b_c1`
 preintegrates gyro/accel between frames/keyframes and uses the deltas as
 relative-motion factors in visual-inertial BA [upstream `IMU::Preintegrated`].
 
-TPU-native: the whole measurement batch integrates in one `jax.lax.scan`
+Design: the whole measurement batch integrates in one `jax.lax.scan`
 (static max length, masked tail), producing a `Preintegrated` pytree that is
 itself a valid scan carry — so N keyframe intervals preintegrate as one
 vmapped scan. Residual/Jacobian helpers below feed the VI initializer and

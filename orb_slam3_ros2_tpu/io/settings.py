@@ -23,32 +23,110 @@ import re
 from typing import Dict, Optional
 
 import numpy as np
-import yaml
 
 from orb_slam3_ros2_tpu.models.cameras import Camera, make_camera
 
 
+# YAML 1.1 plain-scalar forms, as a YAML 1.1 loader resolves them
+_INT_RE = re.compile(r"^[-+]?(0|[1-9][0-9_]*)$")
+_FLOAT_RE = re.compile(
+    r"^[-+]?([0-9][0-9_]*)?\.[0-9_]*([eE][-+][0-9]+)?$"
+    r"|^[-+]?\.(inf|Inf|INF)$|^\.(nan|NaN|NAN)$")
+_BOOLS = {"yes": True, "true": True, "on": True,
+          "no": False, "false": False, "off": False}
+_NULLS = {"", "~", "null", "Null", "NULL"}
+
+
+def _strip_comment(line: str) -> str:
+    """Drop a `#` comment that is outside quotes."""
+    quote = None
+    for i, ch in enumerate(line):
+        if quote:
+            if ch == quote:
+                quote = None
+        elif ch in "\"'":
+            quote = ch
+        elif ch == "#" and (i == 0 or line[i - 1] in " \t"):
+            return line[:i]
+    return line
+
+
+def _scalar(text: str):
+    """One FileStorage value: quoted string, int, float, bool, null, or a
+    plain string."""
+    text = text.strip()
+    if len(text) >= 2 and text[0] == text[-1] and text[0] in "\"'":
+        return text[1:-1]
+    if _INT_RE.match(text):
+        return int(text.replace("_", ""))
+    if _FLOAT_RE.match(text):
+        low = text.lower().lstrip("+")
+        if low.endswith("inf"):
+            return float("-inf") if low.startswith("-") else float("inf")
+        if low.endswith("nan"):
+            return float("nan")
+        return float(text.replace("_", ""))
+    if text.lower() in _BOOLS and text in (
+            text.lower(), text.capitalize(), text.upper()):
+        return _BOOLS[text.lower()]
+    if text in _NULLS:
+        return None
+    return text
+
+
+def _flow_list(text: str):
+    inner = text.strip()
+    if not (inner.startswith("[") and inner.endswith("]")):
+        raise ValueError(f"expected a [..] list, got {text!r}")
+    inner = inner[1:-1].strip()
+    return [_scalar(v) for v in inner.split(",")] if inner else []
+
+
 def load_opencv_yaml(path: str) -> Dict:
-    """Parse an OpenCV-FileStorage YAML file into a flat dict."""
+    """Parse an OpenCV-FileStorage YAML file into a flat dict.
+
+    The dialect the settings files use: a ``%YAML:1.0`` directive, flat
+    ``key: value`` lines with dotted keys, ``#`` comments, and
+    ``!!opencv-matrix`` maps (indented ``rows``/``cols``/``dt``/``data``,
+    where ``data`` is a ``[...]`` list that may span lines). Matrices come
+    back as float64 arrays of shape (rows, cols); scalars resolve as a
+    YAML 1.1 loader would resolve them."""
     with open(path, "r") as f:
-        text = f.read()
-    # strip the %YAML directive (illegal for pyyaml) and opencv-matrix tags
-    lines = text.splitlines()
-    if lines and lines[0].startswith("%YAML"):
-        lines = lines[1:]
-    text = "\n".join(lines)
-    text = text.replace("!!opencv-matrix", "")
-    # OpenCV accepts bare scientific floats like 1.7e-4 — pyyaml does too.
-    data = yaml.safe_load(text) or {}
-    out = {}
-    for k, v in data.items():
-        if isinstance(v, dict) and "data" in v and "rows" in v:
-            arr = np.asarray(v["data"], dtype=np.float64).reshape(
-                int(v["rows"]), int(v["cols"])
-            )
-            out[k] = arr
-        else:
-            out[k] = v
+        lines = [_strip_comment(l).rstrip() for l in f.read().splitlines()]
+    out: Dict = {}
+    i = 0
+    while i < len(lines):
+        line = lines[i]
+        i += 1
+        if not line.strip() or line.lstrip().startswith("%") or \
+                line.strip() == "---":
+            continue
+        if line[0] in " \t":
+            raise ValueError(f"{path}: unexpected indented line {line!r}")
+        key, sep, value = line.partition(":")
+        if not sep:
+            raise ValueError(f"{path}: expected 'key: value', got {line!r}")
+        key, value = key.strip(), value.strip()
+        if value != "!!opencv-matrix":
+            out[key] = _scalar(value)
+            continue
+        fields: Dict = {}
+        while i < len(lines) and (not lines[i].strip()
+                                  or lines[i][0] in " \t"):
+            sub = lines[i].strip()
+            i += 1
+            if not sub:
+                continue
+            fk, _, fv = sub.partition(":")
+            fv = fv.strip()
+            if fv.startswith("[") and "]" not in fv:
+                while i < len(lines) and "]" not in fv:
+                    fv += " " + lines[i].strip()
+                    i += 1
+            fields[fk.strip()] = fv
+        out[key] = np.asarray(
+            _flow_list(fields["data"]), dtype=np.float64
+        ).reshape(int(fields["rows"]), int(fields["cols"]))
     return out
 
 

@@ -26,6 +26,106 @@ import numpy as np
 
 GRAVITY = np.array([0.0, 0.0, -9.81])
 
+# ---------------------------------------------------------------------------
+# Image resampling in numpy. The renders were first made with OpenCV's
+# warpPerspective / remap / resize / GaussianBlur; these follow its
+# conventions and arithmetic (float32 coordinates with fused multiply-adds,
+# bilinear taps outside the source read the border value, replicated border
+# for resize, reflect-101 for the blur), so scenes agree with OpenCV's to
+# float rounding — the tracking tests' thresholds were set on those scenes.
+# ---------------------------------------------------------------------------
+
+
+def _fma32(a, b, c):
+    """a·b + c rounded once to float32 (a fused multiply-add)."""
+    return (np.asarray(a, np.float64) * np.asarray(b, np.float64)
+            + np.asarray(c, np.float64)).astype(np.float32)
+
+
+def _bilinear_lookup(src: np.ndarray, xs: np.ndarray, ys: np.ndarray,
+                     border: float) -> np.ndarray:
+    """Bilinear samples of `src` at float32 coords (x, y) as nested lerps
+    with fused multiply-adds; taps outside the image read `border`."""
+    src = np.asarray(src, np.float32)
+    h, w = src.shape
+    xs = np.clip(np.asarray(xs, np.float32), -2.0, w + 1.0)
+    ys = np.clip(np.asarray(ys, np.float32), -2.0, h + 1.0)
+    ix = np.floor(xs).astype(np.int64)
+    iy = np.floor(ys).astype(np.int64)
+    fx = (xs - ix).astype(np.float32)
+    fy = (ys - iy).astype(np.float32)
+
+    def tap(yy, xx):
+        ok = (xx >= 0) & (xx < w) & (yy >= 0) & (yy < h)
+        v = src[np.clip(yy, 0, h - 1), np.clip(xx, 0, w - 1)]
+        return np.where(ok, v, np.float32(border)).astype(np.float32)
+
+    def lerp(t, a, b):
+        return _fma32(t, (b - a).astype(np.float32), a)
+
+    top = lerp(fx, tap(iy, ix), tap(iy, ix + 1))
+    bot = lerp(fx, tap(iy + 1, ix), tap(iy + 1, ix + 1))
+    return lerp(fy, top, bot)
+
+
+def _warp_perspective(src: np.ndarray, M: np.ndarray, width: int,
+                      height: int, border: float = -1.0) -> np.ndarray:
+    """dst(x, y) = src(M⁻¹ (x, y, 1)) with bilinear sampling (the
+    homography M maps source pixels to destination pixels); coordinates in
+    float32 with fused multiply-adds along each row."""
+    m = np.linalg.inv(np.asarray(M, np.float64)).astype(np.float32).ravel()
+    uu, vv = np.meshgrid(np.arange(width, dtype=np.float32),
+                         np.arange(height, dtype=np.float32))
+
+    def coord(i):
+        row = (m[i + 1] * vv + m[i + 2]).astype(np.float32)
+        return _fma32(uu, m[i], row)
+
+    wd = coord(6)
+    return _bilinear_lookup(src, (coord(0) / wd).astype(np.float32),
+                            (coord(3) / wd).astype(np.float32), border)
+
+
+def _cubic_weights(n_out: int, n_in: int) -> np.ndarray:
+    """(n_out, n_in) bicubic (a = -0.75) resize weights with
+    pixel-centre alignment and replicated edges."""
+    A = -0.75
+    scale = n_in / n_out
+    f = ((np.arange(n_out) + 0.5) * scale - 0.5).astype(np.float32)
+    s = np.floor(f).astype(np.int64)
+    x = (f - s).astype(np.float32)
+    c0 = ((A * (x + 1) - 5 * A) * (x + 1) + 8 * A) * (x + 1) - 4 * A
+    c1 = ((A + 2) * x - (A + 3)) * x * x + 1
+    c2 = ((A + 2) * (1 - x) - (A + 3)) * (1 - x) * (1 - x) + 1
+    c3 = 1 - c0 - c1 - c2
+    Wm = np.zeros((n_out, n_in), np.float32)
+    rows = np.arange(n_out)
+    for k, c in enumerate((c0, c1, c2, c3)):
+        np.add.at(Wm, (rows, np.clip(s + k - 1, 0, n_in - 1)), c)
+    return Wm
+
+
+def _resize_cubic(src: np.ndarray, width: int, height: int) -> np.ndarray:
+    src = np.asarray(src, np.float32)
+    Wx = _cubic_weights(width, src.shape[1])
+    Wy = _cubic_weights(height, src.shape[0])
+    return (Wy @ (src @ Wx.T)).astype(np.float32)
+
+
+def _gaussian_blur(img: np.ndarray, sigma: float) -> np.ndarray:
+    """Separable Gaussian with OpenCV's kernel size for float images
+    (round(8σ + 1) | 1 taps) and reflect-101 borders."""
+    from scipy import ndimage
+
+    ksize = int(np.rint(sigma * 8 + 1)) | 1
+    r = ksize // 2
+    x = np.arange(-r, r + 1, dtype=np.float64)
+    k = np.exp(-(x * x) / (2.0 * sigma * sigma))
+    k /= k.sum()
+    out = ndimage.correlate1d(np.asarray(img, np.float64), k, axis=1,
+                              mode="mirror")
+    return ndimage.correlate1d(out, k, axis=0, mode="mirror")
+
 
 def _so3_exp_np(phi: np.ndarray) -> np.ndarray:
     theta = np.linalg.norm(phi, axis=-1, keepdims=True)
@@ -147,7 +247,7 @@ def make_scene(
 
 
 # ---------------------------------------------------------------------------
-# Image rendering: textured planes via homography warp (needs cv2)
+# Image rendering: textured planes via homography warp
 # ---------------------------------------------------------------------------
 
 
@@ -183,8 +283,6 @@ def render_sequence(
     depths is the metric z-in-camera of the visible surface per pixel (an
     ideal registered RGBD depth channel; 0 where no plane is visible).
     """
-    import cv2
-
     cx, cy = width / 2.0, height / 2.0
     K = np.array([[fx, 0, cx], [0, fy, cy], [0, 0, 1]])
     traj = default_trajectory(seed=seed + 3, scale=traj_scale)
@@ -215,10 +313,7 @@ def render_sequence(
             A = np.array([[sx, 0, -half_x], [0, sy, -half_y], [0, 0, depth]])
             P = np.concatenate([Rk, tk[:, None]], axis=1)  # (3,4)
             M = K @ (P[:, :3] @ A + np.outer(P[:, 3], [0, 0, 1]))
-            warped = cv2.warpPerspective(
-                tex, M.astype(np.float64), (width, height),
-                flags=cv2.INTER_LINEAR, borderValue=-1.0,
-            )
+            warped = _warp_perspective(tex, M, width, height)
             vis = warped >= 0
             frame = np.where(vis, warped, frame)
             if return_depth:
@@ -263,15 +358,13 @@ def _value_noise_texture(h: int, w: int, seed: int) -> np.ndarray:
     descriptor repeatability is stressed the way real scenes stress it —
     the box texture of `_texture` is axis-aligned high contrast everywhere,
     which flatters FAST/BRIEF."""
-    import cv2
-
     rng = np.random.default_rng(seed)
     img = np.zeros((h, w), np.float32)
     amp, cells = 1.0, 4
     total = 0.0
     while cells < max(h, w):
         grid = rng.uniform(0, 1, (cells + 1, cells + 1)).astype(np.float32)
-        img += amp * cv2.resize(grid, (w, h), interpolation=cv2.INTER_CUBIC)
+        img += amp * _resize_cubic(grid, w, h)
         total += amp
         amp *= 0.55
         cells *= 2
@@ -324,8 +417,6 @@ def _room_planes(seed: int, half_x=3.0, half_y=2.2, z_near=-2.0, z_far=6.0,
 def _render_planes(planes, K, Rk, tk, width, height, rx, ry):
     """Z-buffered render of general textured planes (homography warp per
     plane + analytic ray-plane depth)."""
-    import cv2
-
     frame = np.zeros((height, width), np.float32)
     zbuf = np.full((height, width), np.inf, np.float32)
     R_wc = Rk.T
@@ -333,10 +424,7 @@ def _render_planes(planes, K, Rk, tk, width, height, rx, ry):
     for pl in planes:
         A = np.stack([pl.ax_u, pl.ax_v, pl.origin], axis=1)  # (3,3)
         M = K @ (Rk @ A + np.outer(tk, [0.0, 0.0, 1.0]))
-        warped = cv2.warpPerspective(
-            pl.tex, M, (width, height), flags=cv2.INTER_LINEAR,
-            borderValue=-1.0,
-        )
+        warped = _warp_perspective(pl.tex, M, width, height)
         n = np.cross(pl.ax_u, pl.ax_v)
         n /= max(np.linalg.norm(n), 1e-12)
         # ray c_w + s * R_wc @ (rx, ry, 1); z_cam == s
@@ -355,10 +443,8 @@ def _render_planes(planes, K, Rk, tk, width, height, rx, ry):
 def _photometric(frame, vignette, gain, noise_dn, rng):
     """Realistic image formation on top of the ideal render: vignetting,
     exposure gain, sensor noise, 8-bit quantization, slight defocus."""
-    import cv2
-
     img = frame * vignette * gain
-    img = cv2.GaussianBlur(img, (0, 0), 0.6)
+    img = _gaussian_blur(img, 0.6)
     img = img + rng.normal(0.0, noise_dn, img.shape)
     return np.clip(np.round(img), 0, 255).astype(np.float32)
 
@@ -436,11 +522,9 @@ def _render_planes_rays(planes, dirs_cam, R_cw, t_cw):
     """Z-buffered render for a GENERAL camera: per-pixel rays instead of the
     pinhole homography warp. dirs_cam (H, W, 3) are unit-z camera-frame ray
     directions (models.cameras.unproject); sampling is ray-plane
-    intersection + cv2.remap per plane. Shared by the KB8 fisheye path —
+    intersection + a bilinear lookup per plane. Shared by the KB8 fisheye path —
     the image-formation side of `Camera.type: "KannalaBrandt8"`
     (`/root/reference/config/Stereo/TUM-VI.yaml:8,17-32`)."""
-    import cv2
-
     H, W = dirs_cam.shape[:2]
     R_wc = R_cw.T
     c_w = -R_cw.T @ t_cw
@@ -465,8 +549,7 @@ def _render_planes_rays(planes, dirs_cam, R_cw, t_cw):
         bv = Gi[1, 0] * pl.ax_u + Gi[1, 1] * pl.ax_v
         ut = (rel @ bu).astype(np.float32)
         vt = (rel @ bv).astype(np.float32)
-        warped = cv2.remap(pl.tex, ut, vt, cv2.INTER_LINEAR,
-                           borderValue=-1.0)
+        warped = _bilinear_lookup(pl.tex, ut, vt, -1.0)
         vis = (warped >= 0) & (s > 0.1) & (s < zbuf)
         frame = np.where(vis, warped, frame)
         zbuf = np.where(vis, s.astype(np.float32), zbuf)

@@ -12,8 +12,8 @@ duplicated landmarks across the seam are fused; a global BA follows. The
 fork exposes a `loopClosing` on/off switch
 (`/root/reference/config/Monocular-Inertial/RealSense_D435i.yaml:9`).
 
-TPU-native: fixed-capacity edge lists over the map's keyframe capacity; the
-covisibility edges come from the dense covisibility matrix (one MXU matmul,
+Design: fixed-capacity edge lists over the map's keyframe capacity; the
+covisibility edges come from the dense covisibility matrix (one matmul,
 atlas.map_state.covisibility_matrix); relative-pose measurements for the
 whole edge list are one batched jitted computation. The odometry edges are
 built from the *pre-correction* poses so drift is preserved as relative

@@ -15,7 +15,7 @@ One line per non-root node, node ids assigned by line order starting at 1
 b0..b31 are the node's 256-bit ORB centroid as bytes; weight is the word's
 idf weight (non-zero for leaves).
 
-TPU-native mapping: our retrieval is a flat W-word codebook consumed as one
+Mapping: our retrieval is a flat W-word codebook consumed as one
 (N,256)x(256,W) matmul (loop/vocab.py) — no tree walk. The hierarchy is
 flattened by picking the tree level whose node count best matches W and
 using those centroids as the codebook anchors (k=10 vocabularies have 1000

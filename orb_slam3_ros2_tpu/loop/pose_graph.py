@@ -5,7 +5,7 @@ keyframe vertices with relative-Sim3 edges (spanning tree + covisibility +
 loop edges), run after a loop is accepted; mono uses 7-DoF (scale drift),
 inertial/stereo 6-DoF [upstream].
 
-TPU-native: fixed-capacity edge list (i, j, S_meas) with a validity mask;
+Design: fixed-capacity edge list (i, j, S_meas) with a validity mask;
 one GN iteration evaluates every edge residual r_e = log_sim3(S_meas⁻¹ ∘
 S_i ∘ S_j⁻¹) and its Jacobians by `jax.jacfwd` over the 14 involved tangent
 coords (vmapped over edges — exact, no hand-derived Sim3 adjoints to get

@@ -5,7 +5,7 @@ between the 3-D landmarks matched across the loop pair, with reprojection
 vetting; scale is solved for mono, fixed to 1 for stereo/inertial
 [upstream]. Needed before an essential-graph correction can be applied.
 
-TPU-native: all RANSAC hypotheses are closed-form Horn/Umeyama alignments
+Design: all RANSAC hypotheses are closed-form Horn/Umeyama alignments
 computed as one batched (NH, 3, 3) SVD; inlier scoring is a broadcasted
 reduction. One jitted call, fixed shapes.
 """

@@ -1,15 +1,15 @@
-"""Place recognition: BoW vocabulary + retrieval as MXU matmuls (E8 part 1).
+"""Place recognition: BoW vocabulary + retrieval as matmuls (E8 part 1).
 
 Reference behavior: DBoW2 hierarchical binary vocabulary (`ORBvoc.txt`,
 loaded at `/root/reference/src/imu_mono_realsense.cpp:52-53`) + an inverted
 keyframe index (`KeyFrameDatabase`) for loop-closure / relocalization
 candidates [upstream].
 
-TPU-native redesign: a flat vocabulary of W anchor descriptors (±1 vectors).
+Fixed-shape redesign: a flat vocabulary of W anchor descriptors (±1 vectors).
 Word assignment for all N features of a frame is one (N,256)x(256,W) matmul
 argmax; the frame's global descriptor is an idf-weighted normalized word
 histogram; database retrieval is one (K,W)x(W,) matmul + top-k — no tree
-walks, no inverted lists, everything dense on the MXU. The anchors come from
+walks, no inverted lists, everything dense matmuls. The anchors come from
 a deterministic PRNG (a data-independent codebook); idf statistics adapt
 online from the keyframes actually inserted.
 """

@@ -1,6 +1,6 @@
 """Camera models: PinHole (radtan), Rectified, KannalaBrandt8 (fisheye).
 
-TPU-native equivalent of the reference engine's `GeometricCamera` hierarchy
+Fixed-shape equivalent of the reference engine's `GeometricCamera` hierarchy
 (SURVEY.md E2). Model names and parameter layout follow the settings-YAML
 surface observable in the snapshot:
 

@@ -1,10 +1,10 @@
 """Unrolled Cholesky solves for tiny fixed-size SPD systems.
 
-`jnp.linalg.solve` lowers to an LU custom call with large fixed overhead on
-TPU — prohibitive inside the tracking LM loop, which solves one 6x6 system
-per iteration (40 iterations/frame). Unrolling the factorization into ~150
-scalar ops lets XLA fuse the entire solve into the surrounding kernel: no
-custom call, no dispatch, effectively free next to the residual reduction.
+`jnp.linalg.solve` lowers to a library custom call (an LU with pivoting):
+one more kernel launch with its own fixed cost, inside the tracking LM loop
+that solves one 6x6 system per iteration. Unrolling the factorization into
+~150 scalar ops lets XLA fuse the entire solve into the surrounding kernel:
+no custom call, no extra launch.
 
 Python loops here unroll at trace time (n is a static int)."""
 
@@ -16,9 +16,9 @@ import jax.numpy as jnp
 def inv3x3_spd(A: jnp.ndarray) -> jnp.ndarray:
     """Closed-form adjugate inverse of batched SPD 3x3 blocks.
 
-    `jnp.linalg.inv` on (L, 3, 3) lowers to a batched LU *custom call* on
-    TPU — measured as a dominant cost of the BA iteration at L = 8192
-    (PROFILE.json BA roofline row). The adjugate form is ~40 fused
+    `jnp.linalg.inv` on (L, 3, 3) lowers to a batched LU *custom call*,
+    a separate launch that XLA cannot fuse with the per-landmark work
+    around it. The adjugate form is ~40 fused
     elementwise ops on (L,) lanes: exact for SPD blocks (determinant
     bounded away from 0 by the caller's damping) and keeps the whole
     Schur elimination inside one XLA fusion.

@@ -1,11 +1,11 @@
-"""FAST-9/16 corner detection, vectorized for the VPU (E1 part 2).
+"""FAST-9/16 corner detection, vectorized over the whole image (E1 part 2).
 
 Reference behavior: `ORBextractor` runs FAST segment-test detection per
 pyramid level with a high threshold `iniThFAST` and falls back to
 `minThFAST` in empty cells (settings keys in every YAML,
 `/root/reference/config/Monocular-Inertial/EuRoC.yaml:64-69`: 20 / 7).
 
-TPU-native design: no per-pixel branching — the *exact corner score* (the
+Design: no per-pixel branching — the *exact corner score* (the
 maximum threshold at which the segment test still passes, OpenCV's
 definition) is computed for every pixel at once as a max-over-16-windows of
 min-over-9-offsets of center differences. The dual-threshold fallback then

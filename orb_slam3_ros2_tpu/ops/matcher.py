@@ -1,17 +1,17 @@
-"""Hamming descriptor matching as MXU matmuls (E3).
+"""Hamming descriptor matching as matmuls (E3).
 
 Reference behavior: `ORBmatcher` computes 256-bit Hamming distances with
 popcount loops plus rotation-consistency histograms and a best/second-best
 ratio test [upstream; required by tracking/mapping/loop stages, SURVEY.md E3].
 
-TPU-native design: descriptors are (N, 256) ±1 vectors, so
-``hamming(a, b) = (256 - a @ b.T) / 2`` — one MXU matmul computes the full
+Design: descriptors are (N, 256) ±1 vectors, so
+``hamming(a, b) = (256 - a @ b.T) / 2`` — one matmul computes the full
 N×M distance matrix at speed of light; masking, ratio test, mutual-best
 check, and the rotation histogram are all elementwise/reduction ops fused by
 XLA around it. Candidate gating (search windows / grid buckets) enters as an
 additive mask on the distance matrix rather than as gather-based candidate
-lists — dense compute beats irregular gathers on TPU for these sizes
-(N ≤ 2048: the whole matrix is ~N·M·2 flops ≪ one pyramid blur).
+lists — dense compute beats irregular gathers at these sizes (N ≤ 2048:
+the whole matrix is ~N·M·2 flops ≪ one pyramid blur).
 """
 
 from __future__ import annotations
@@ -36,21 +36,19 @@ def hamming_matrix(signs_a: jnp.ndarray, signs_b: jnp.ndarray,
                    dtype=jnp.float32) -> jnp.ndarray:
     """(N, 256) ±1 × (M, 256) ±1 -> (N, M) Hamming distances.
 
-    With dtype=bfloat16 the result is still EXACT: Hamming distances are
-    integers in [0, 256] and bf16's 8 significand bits represent every
-    integer up to 256 — but the (N, M) matrix costs half the HBM traffic,
-    which is what bounds the match stage (PROFILE.json).
+    The product runs on bf16 operands with f32 accumulation (tensor cores
+    on the GPU): ±1 is exact in bf16 and every partial sum is an integer of
+    magnitude ≤ 256, so the result is exact. With dtype=bfloat16 it stays
+    exact — bf16's 8 significand bits represent every integer up to 256 —
+    and the (N, M) matrix costs half the memory traffic, which is what
+    bounds the match stage's reductions.
     """
     sim = jax.lax.dot_general(
-        signs_a, signs_b,
+        signs_a.astype(jnp.bfloat16), signs_b.astype(jnp.bfloat16),
         dimension_numbers=(((1,), (1,)), ((), ())),
-        preferred_element_type=dtype,
-        # ±1 products are exact in bf16 and the MXU accumulates in f32, so
-        # the fast path is lossless here — opt out of the library-wide
-        # 'highest' default (see package __init__)
-        precision=jax.lax.Precision.DEFAULT,
+        preferred_element_type=jnp.float32,
     )
-    return (N_BITS - sim) * dtype(0.5)
+    return ((N_BITS - sim) * 0.5).astype(dtype)
 
 
 def match(
@@ -74,8 +72,8 @@ def match(
     reference's Fuse path accepts any best under TH_LOW so duplicate
     descriptors can still match [upstream ORBmatcher::Fuse]).
     """
-    # The (N, M) distance matrix is what bounds this function (HBM traffic,
-    # PROFILE.json), so it is kept in bf16 — exact for integer Hamming
+    # The (N, M) distance matrix is what bounds this function (memory
+    # traffic), so it is kept in bf16 — exact for integer Hamming
     # values ≤ 256 — and every pass over it is a fused elementwise+reduce:
     # no scatter, no f32 materialization.
     d = hamming_matrix(signs_a, signs_b, dtype=jnp.bfloat16)

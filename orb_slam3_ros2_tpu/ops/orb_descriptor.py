@@ -5,18 +5,21 @@ radius-15 circular patch and a 256-bit steered-BRIEF descriptor from a fixed
 learned sampling pattern [upstream; surfaced in the snapshot only through the
 descriptor-consuming settings/vocabulary, `/root/reference/src/imu_mono_realsense.cpp:52-53`].
 
-TPU-native design decisions:
+Design decisions:
 * The sampling pattern is generated here (seeded Gaussian pairs inside a
   radius-13 disc) rather than copying OpenCV's learned table — descriptors
   only need to be *internally* consistent (matcher + our own vocabulary),
   and a disc-bounded pattern stays inside the gathered patch under rotation.
 * Descriptors live in two forms:
   - ``bits`` packed as (N, 8) uint32 for storage/serialization,
-  - ``signs`` as (N, 256) ±1 bf16 — the compute form. Hamming distance
-    becomes ``(256 - signs_a @ signs_b.T) / 2``: a pure MXU matmul, which is
-    the whole point of building descriptors this way on TPU.
+  - ``signs`` as (N, 256) ±1 — the compute form. Hamming distance
+    becomes ``(256 - signs_a @ signs_b.T) / 2``: one matmul for every pair
+    of descriptors (ops/matcher.py).
 * Patch gather is a vmapped `dynamic_slice` (keypoints are already clamped
   to the interior by the extractor's border margin).
+* Steering is exact per keypoint: 512 bilinear samples at the rotated
+  pattern, gathered from the patch (on an H100 this measured faster inside
+  the tracking step than an angle-binned steering matmul).
 """
 
 from __future__ import annotations
@@ -67,111 +70,27 @@ def gather_patches(img: jnp.ndarray, yx: jnp.ndarray) -> jnp.ndarray:
     Coordinates must satisfy PATCH_R <= y < H-PATCH_R (ditto x); the extractor
     guarantees this via its edge margin. Invalid (masked) keypoints may carry
     clamped coordinates — their output is garbage but masked downstream.
-
-    TPU path: full-row take along the major axis (a DMA-friendly contiguous
-    gather) + a one-hot matmul to select columns — measured ~4x faster than
-    the vmapped dynamic_slice, which XLA lowers to a per-element gather.
+    A vmapped `dynamic_slice`, which XLA lowers to one native gather.
     """
-    yx = jnp.asarray(yx, dtype=jnp.int32)
-    start = yx - PATCH_R
+    start = jnp.asarray(yx, dtype=jnp.int32) - PATCH_R
 
-    if jax.default_backend() != "tpu":
-        def slice_one(s):
-            return jax.lax.dynamic_slice(img, (s[0], s[1]), (PATCH, PATCH))
+    def slice_one(s):
+        return jax.lax.dynamic_slice(img, (s[0], s[1]), (PATCH, PATCH))
 
-        return jax.vmap(slice_one)(start)
-
-    N = yx.shape[0]
-    W = img.shape[1]
-    dr = jnp.arange(PATCH, dtype=jnp.int32)
-    rows = img[(start[:, 0, None] + dr[None, :]).reshape(-1)]  # (N*31, W)
-    rows = rows.reshape(N, PATCH, W)
-    # column selection: (N, PATCH_cols, W) one-hot against each patch's x
-    cols = start[:, 1, None] + dr[None, :]  # (N, 31)
-    onehot = (cols[:, :, None] ==
-              jnp.arange(W, dtype=jnp.int32)[None, None, :])
-    return jnp.einsum(
-        "nrw,ncw->nrc", rows, onehot.astype(img.dtype),
-        precision=jax.lax.Precision.DEFAULT,
-    )
+    return jax.vmap(slice_one)(start)
 
 
 def gather_patches_multi(imgs, yx: jnp.ndarray):
     """Gather the same (N, PATCH, PATCH) windows from several same-shape
     images (e.g. the raw canvas for orientation moments + the blurred
-    canvas for BRIEF).
-
-    TPU path: BLOCK gather. A full-width row gather materializes
-    (N·31, W) — ~120 MB/frame at W=752/N≈1100, the dominant extraction
-    traffic (r4 profiling). Instead the image is viewed as 128-lane
-    blocks; each patch row needs at most TWO adjacent blocks, so the
-    gather moves (N·31·2, 128) bf16 = ~7x less, and the 31-column select
-    becomes a one-hot over 256 lanes (shared across images). bf16 is free
-    precision-wise — describe() rounds patch intensities to bf16 anyway,
-    and the IC moments sum ~700 ±0.5-rounded values (µrad angle noise).
-    """
-    if jax.default_backend() != "tpu":
-        return tuple(gather_patches(im, yx) for im in imgs)
-    return _gather_patches_block(imgs, yx)
-
-
-def _gather_patches_block(imgs, yx: jnp.ndarray):
-    """Single-block gather via a 64-lane-shifted shadow copy.
-
-    A 31-wide window with lane offset off <= 97 lives inside ONE 128-lane
-    block; windows with off > 97 live inside one block of the SAME image
-    shifted left by 64 lanes (new offset off-64 in [34, 63]). Stacking the
-    shifted copy under the original lets every patch row come from exactly
-    one gathered (128,) block — HALF the gather rows and HALF the
-    column-select matmul of the r4 two-adjacent-blocks scheme (measured:
-    the gather stage was 0.51 ms/frame of the 1.32 ms extraction, the
-    second-largest piece after the fused frontend kernel)."""
-    yx = jnp.asarray(yx, dtype=jnp.int32)
-    start = yx - PATCH_R
-    N = yx.shape[0]
-    H, W = imgs[0].shape
-    nblk = -(-W // 128)
-    Wp = nblk * 128
-    dr = jnp.arange(PATCH, dtype=jnp.int32)
-    rows = start[:, 0, None] + dr[None, :]  # (N, 31) absolute rows
-    b0 = start[:, 1] // 128  # (N,) first 128-block of the window
-    off = start[:, 1] - b0 * 128  # (N,) in [0, 127]
-    use_shift = off > 128 - PATCH  # needs the 64-shifted copy
-    # shifted-copy coordinates: absolute col - 64
-    c_shift = start[:, 1] - 64
-    b0_s = c_shift // 128
-    off_s = c_shift - b0_s * 128
-    b_sel = jnp.where(use_shift, b0_s, b0)
-    off_sel = jnp.where(use_shift, off_s, off)
-    # row index into the stacked (original; shifted) block view
-    base = jnp.where(use_shift, H * nblk, 0)
-    bidx = (base[:, None] + rows * nblk
-            + jnp.clip(b_sel, 0, nblk - 1)[:, None]).reshape(-1)  # (N*31,)
-    cols = off_sel[:, None] + dr[None, :]  # (N, 31) in [0, 127]
-    oh = (cols[:, :, None] ==
-          jnp.arange(128, dtype=jnp.int32)[None, None, :]
-          ).astype(jnp.bfloat16)
-    out = []
-    for im in imgs:
-        imb = im.astype(jnp.bfloat16)
-        if Wp != W:
-            imb = jnp.pad(imb, ((0, 0), (0, Wp - W)))
-        imb_s = jnp.pad(imb[:, 64:], ((0, 0), (0, 64)))
-        stacked = jnp.concatenate(
-            [imb.reshape(H * nblk, 128), imb_s.reshape(H * nblk, 128)],
-            axis=0)
-        g = stacked[bidx].reshape(N, PATCH, 128)
-        out.append(jnp.einsum("nrw,ncw->nrc", g, oh,
-                              precision=jax.lax.Precision.DEFAULT,
-                              preferred_element_type=jnp.float32))
-    return tuple(out)
+    canvas for BRIEF)."""
+    return tuple(gather_patches(im, yx) for im in imgs)
 
 
 def orientations(patches: jnp.ndarray) -> jnp.ndarray:
     """Intensity-centroid angle per patch: (N, P, P) -> (N,) radians.
 
-    Written as one (N, P²) @ (P², 2) matmul so the TPU path (per-keypoint
-    moments instead of full-image moment maps) is a single tiny MXU op.
+    Written as one (N, P²) @ (P², 2) matmul over the gathered patches.
     """
     mask = _orientation_mask()
     yy, xx = _offset_grids()
@@ -180,93 +99,6 @@ def orientations(patches: jnp.ndarray) -> jnp.ndarray:
     )  # (P*P, 2)
     m = patches.reshape(patches.shape[0], -1) @ wts
     return jnp.arctan2(m[:, 0], m[:, 1])
-
-
-def moment_maps(img: jnp.ndarray):
-    """Full-image IC moments: (m01, m10) of the radius-15 disc at EVERY
-    pixel, from two row cumsums + 31 shifted-difference adds.
-
-    Per disc row dy the mask covers |dx| <= u(dy) = floor(sqrt(R²−dy²)), so
-    the row's contribution is a prefix-sum difference; summing 31 shifted
-    rows yields the same moments `orientations` computes from a gathered
-    patch — but as pure vector ops, replacing the per-keypoint 31×31 patch
-    gather (the single hottest op in the extractor: ~1.1 ms/frame measured
-    on TPU) with a 2-scalar lookup per keypoint.
-
-    Exact on the interior (>= 15 px from the border), where the extractor's
-    EDGE margin already confines keypoints.
-    """
-    H, W = img.shape
-    R = ORI_RADIUS
-    xw = img * jnp.arange(W, dtype=img.dtype)[None, :]
-    # prefix sums with a leading zero column: rowsum x∈[a,b] = S[b+1]−S[a]
-    S = jnp.pad(jnp.cumsum(img, axis=1), ((R, R), (1, 0)))
-    C = jnp.pad(jnp.cumsum(xw, axis=1), ((R, R), (1, 0)))
-    # pad columns so x±u(dy) indexing stays in-bounds
-    S = jnp.pad(S, ((0, 0), (R, R + 1)), mode="edge")
-    C = jnp.pad(C, ((0, 0), (R, R + 1)), mode="edge")
-    x0 = R  # column offset of image x=0 in the padded prefix arrays
-
-    m01 = jnp.zeros((H, W), img.dtype)
-    msum = jnp.zeros((H, W), img.dtype)  # Σ I over the disc
-    mxw = jnp.zeros((H, W), img.dtype)  # Σ x·I over the disc
-    for dy in range(-R, R + 1):
-        u = int(np.floor(np.sqrt(R * R - dy * dy)))
-        # rows y+dy of the original image sit at padded row y+dy+R
-        hi = S[R + dy:R + dy + H, x0 + u + 1:x0 + u + 1 + W]
-        lo = S[R + dy:R + dy + H, x0 - u:x0 - u + W]
-        rs = hi - lo
-        chi = C[R + dy:R + dy + H, x0 + u + 1:x0 + u + 1 + W]
-        clo = C[R + dy:R + dy + H, x0 - u:x0 - u + W]
-        m01 = m01 + dy * rs
-        msum = msum + rs
-        mxw = mxw + (chi - clo)
-    m10 = mxw - msum * jnp.arange(W, dtype=img.dtype)[None, :]
-    return m01, m10
-
-
-N_ANGLE_BINS = 32  # steering quantization; adjacent-bin interpolation keeps
-# worst-case sample displacement at r·Δθ²/8 ≈ 0.063 px (vs OpenCV ORB's
-# integer rounding of the rotated pattern, worst-case 0.71 px). An r5
-# experiment at 12 bins measured mean binned-vs-exact Hamming 26/256 (vs
-# <12 here) for only ~0.04 ms/frame saved — the bin count is NOT the
-# extraction bottleneck (the fused FAST kernel and patch gather are), so
-# 32 stays.
-
-
-@functools.lru_cache(maxsize=None)
-def _steer_weights() -> np.ndarray:
-    """(PATCH*PATCH, N_ANGLE_BINS * 2*N_BITS) bilinear sampling matrix.
-
-    Column (a*512 + s) holds the 4-tap bilinear weights that sample the
-    pattern point s rotated by bin angle θ_a = a·2π/A from a flattened
-    31×31 patch. BRIEF sampling for ALL keypoints then becomes ONE MXU
-    matmul ``patches_flat @ W`` followed by a per-keypoint 2-bin blend —
-    this replaces a per-keypoint gather that XLA lowered to ~11 GB of
-    one-hot traffic per frame (measured; it was 80% of the whole
-    tracking step's HBM bytes).
-    """
-    pat = brief_pattern().reshape(N_BITS * 2, 2)  # (512, 2) as (y, x)
-    A = N_ANGLE_BINS
-    W = np.zeros((PATCH * PATCH, A * N_BITS * 2), dtype=np.float32)
-    for a in range(A):
-        th = 2.0 * np.pi * a / A
-        c, s = np.cos(th), np.sin(th)
-        # rotate by +θ in image coords (y down): y' = s·x + c·y, x' = c·x − s·y
-        ry = s * pat[:, 1] + c * pat[:, 0]
-        rx = c * pat[:, 1] - s * pat[:, 0]
-        y = np.clip(ry + PATCH_R, 0.0, PATCH - 1.001)
-        x = np.clip(rx + PATCH_R, 0.0, PATCH - 1.001)
-        y0 = np.floor(y).astype(np.int64)
-        x0 = np.floor(x).astype(np.int64)
-        fy = (y - y0).astype(np.float32)
-        fx = (x - x0).astype(np.float32)
-        col = a * N_BITS * 2 + np.arange(N_BITS * 2)
-        W[y0 * PATCH + x0, col] += (1 - fy) * (1 - fx)
-        W[y0 * PATCH + x0 + 1, col] += (1 - fy) * fx
-        W[(y0 + 1) * PATCH + x0, col] += fy * (1 - fx)
-        W[(y0 + 1) * PATCH + x0 + 1, col] += fy * fx
-    return W
 
 
 def _bilinear_sample(patch_flat: jnp.ndarray, y: jnp.ndarray, x: jnp.ndarray):
@@ -290,13 +122,9 @@ def _bilinear_sample(patch_flat: jnp.ndarray, y: jnp.ndarray, x: jnp.ndarray):
     )
 
 
-def _describe_exact(patches: jnp.ndarray, angles: jnp.ndarray):
-    """Exact-angle steered BRIEF via per-keypoint gathers.
-
-    The semantics oracle. Cheap on CPU; on TPU XLA lowers the batched
-    gathers to ~11 GB/frame of one-hot traffic (measured), so the TPU path
-    uses the binned matmul below instead.
-    """
+def steered_samples(patches: jnp.ndarray, angles: jnp.ndarray):
+    """(N, 256, 2) patch intensities at each bit's two pattern points,
+    rotated by the keypoint angle (per-keypoint bilinear gathers)."""
     pat = jnp.asarray(brief_pattern())  # (256, 2, 2) — (y, x)
     cos = jnp.cos(angles)
     sin = jnp.sin(angles)
@@ -312,70 +140,14 @@ def _describe_exact(patches: jnp.ndarray, angles: jnp.ndarray):
     return vals.reshape(patches.shape[0], N_BITS, 2)
 
 
-@functools.lru_cache(maxsize=None)
-def _steer_weights_diff() -> np.ndarray:
-    """(PATCH*PATCH, A*256) tau-DIFFERENCE sampling matrix.
-
-    The tau test only needs sign(v_s0 − v_s1), so the two sample points of
-    each bit fold into ONE weight column (difference of the two bilinear
-    stencils) — half the matmul FLOPs and half the (N, A, ·) intermediate
-    of sampling both points separately."""
-    W = _steer_weights().reshape(PATCH * PATCH, N_ANGLE_BINS, N_BITS, 2)
-    return np.ascontiguousarray(
-        (W[..., 0] - W[..., 1]).reshape(PATCH * PATCH, -1)
-    )
-
-
-def _describe_binned(patches: jnp.ndarray, angles: jnp.ndarray):
-    """Binned-angle steering as one MXU matmul + 2-bin blend (TPU path).
-
-    Returns the per-bit tau difference (N, 256); sign(diff) is the bit."""
-    N = patches.shape[0]
-    A = N_ANGLE_BINS
-    flat = patches.reshape(N, PATCH * PATCH)
-    W = jnp.asarray(_steer_weights_diff()).astype(jnp.bfloat16)  # (961, A*256)
-
-    # (N, A*256): every keypoint's tau differences at every bin angle.
-    # bf16 is fine here — weights and intensities round to ~0.4%, far
-    # below the tau-test contrast scale (bounded by the binned-vs-exact
-    # test).
-    vals_all = jax.lax.dot_general(
-        flat.astype(jnp.bfloat16), W, (((1,), (0,)), ((), ())),
-        preferred_element_type=jnp.float32,
-        precision=jax.lax.Precision.DEFAULT,
-    ).reshape(N, A, N_BITS)
-
-    two_pi = 2.0 * jnp.pi
-    tbin = jnp.mod(angles, two_pi) / (two_pi / A)  # fractional bin in [0, A)
-    i0 = jnp.floor(tbin).astype(jnp.int32) % A
-    i1 = (i0 + 1) % A
-    f = (tbin - jnp.floor(tbin))[:, None].astype(jnp.float32)
-    # per-keypoint 2-bin pick as a row gather (take_along_axis lowers to
-    # one dynamic-gather per bin — cheaper than the two (N, A, 256)
-    # one-hot contractions it replaces)
-    v0 = jnp.take_along_axis(vals_all, i0[:, None, None], axis=1)[:, 0]
-    v1 = jnp.take_along_axis(vals_all, i1[:, None, None], axis=1)[:, 0]
-    return (1.0 - f) * v0 + f * v1  # (N, 256) tau differences
-
-
-def describe(patches: jnp.ndarray, angles: jnp.ndarray,
-             binned: bool | None = None):
+def describe(patches: jnp.ndarray, angles: jnp.ndarray):
     """Steered BRIEF-256 for each patch.
 
     patches: (N, PATCH, PATCH) from the *blurred* level image; angles (N,).
     Returns (signs (N, 256) float32 in {-1, +1}, bits (N, 8) uint32).
-
-    Dispatch: exact per-keypoint steering on CPU (the oracle), binned
-    matmul steering on TPU (see _describe_binned); `binned` forces a path.
     """
-    if binned is None:
-        binned = jax.default_backend() == "tpu"
-    if binned:
-        diff = _describe_binned(patches, angles)
-    else:
-        vals = _describe_exact(patches, angles)
-        diff = vals[:, :, 0] - vals[:, :, 1]
-    bits_bool = diff < 0  # tau test: v_s0 < v_s1
+    vals = steered_samples(patches, angles)
+    bits_bool = vals[:, :, 0] < vals[:, :, 1]  # tau test: v_s0 < v_s1
     signs = jnp.where(bits_bool, 1.0, -1.0).astype(jnp.float32)
     bits = pack_bits(bits_bool)
     return signs, bits

@@ -6,8 +6,8 @@ geometric `scaleFactor` (settings keys in every YAML, e.g.
 scaleFactor 1.2) and blurs each level with a 7x7 σ=2 Gaussian before BRIEF
 sampling [upstream]. Here each level has a static shape computed at trace
 time from the config, resize is `jax.image.resize` (bilinear — maps to XLA
-gather/dot, fuses well), and the blur is two 1-D separable convolutions on
-the VPU.
+gather/dot, fuses well), and the blur is two 1-D separable convolutions as
+fused elementwise passes.
 """
 
 from __future__ import annotations

@@ -19,9 +19,9 @@ Protocol (one OS process per host, formed by `jax.distributed`):
    LOCAL devices: an independent SLAM front-end per host, exactly the
    multi-agent / multi-session mapping layout (BASELINE.json config #5,
    "multi-session city-scale SfM at N >= 2 hosts").
-2. **Atlas exchange over DCN** — the fixed-capacity `MapState` pytree is
-   `process_allgather`ed (Gloo on this container; DCN between real TPU
-   hosts). Fixed shapes mean the exchange is a single dense collective —
+2. **Atlas exchange between processes** — the fixed-capacity `MapState`
+   pytree is `process_allgather`ed (Gloo between CPU processes, NCCL
+   between GPU processes). Fixed shapes mean the exchange is a single dense collective —
    no serialization protocol, no dynamic-size negotiation.
 3. **Deterministic cross-map weld** — every process folds the gathered
    maps identically (same data -> same result; no coordinator round):
@@ -160,28 +160,17 @@ def run_worker(process_id: int, num_processes: int, coordinator: str,
                local_devices: int, out_path: str,
                n_frames: int = 44, overlap: int = 10,
                ba_iters: int = 8) -> dict:
-    if local_devices:
-        kept = [f for f in os.environ.get("XLA_FLAGS", "").split()
-                if "xla_force_host_platform_device_count" not in f]
-        kept.append("--xla_force_host_platform_device_count="
-                    f"{local_devices}")
-        os.environ["XLA_FLAGS"] = " ".join(kept)
-    import jax
+    from orb_slam3_ros2_tpu.parallel import mesh as mesh_mod
 
-    if local_devices:
-        jax.config.update("jax_platforms", "cpu")
-    jax.distributed.initialize(
-        coordinator_address=coordinator,
-        num_processes=num_processes,
-        process_id=process_id,
-    )
+    mesh_mod.init_distributed(coordinator, num_processes, process_id,
+                              local_devices)
+    import jax
     import jax.numpy as jnp
     from jax.experimental import multihost_utils
 
     from orb_slam3_ros2_tpu.atlas import map_state as ms
     from orb_slam3_ros2_tpu.io import synthetic
     from orb_slam3_ros2_tpu.parallel import distributed_map
-    from orb_slam3_ros2_tpu.parallel import mesh as mesh_mod
     from orb_slam3_ros2_tpu.runtime.system import Sensor, System
 
     repo = os.path.dirname(os.path.dirname(

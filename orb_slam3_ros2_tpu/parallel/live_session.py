@@ -582,19 +582,12 @@ def _transform_map(m, R_A, t_A, s_A):
 def run_worker(process_id: int, num_processes: int, coordinator: str,
                local_devices: int, out_path: str, n_frames: int = 100,
                overlap: int = 12) -> dict:
-    if local_devices:
-        kept = [f for f in os.environ.get("XLA_FLAGS", "").split()
-                if "xla_force_host_platform_device_count" not in f]
-        kept.append("--xla_force_host_platform_device_count="
-                    f"{local_devices}")
-        os.environ["XLA_FLAGS"] = " ".join(kept)
+    from orb_slam3_ros2_tpu.parallel import mesh as mesh_mod
+
+    mesh_mod.init_distributed(coordinator, num_processes, process_id,
+                              local_devices)
     import jax
 
-    if local_devices:
-        jax.config.update("jax_platforms", "cpu")
-    jax.distributed.initialize(coordinator_address=coordinator,
-                               num_processes=num_processes,
-                               process_id=process_id)
     from orb_slam3_ros2_tpu.atlas import map_state as ms
     from orb_slam3_ros2_tpu.io import synthetic
 

@@ -2,20 +2,19 @@
 
 The reference has no scale-out at all (its only "distribution" is ROS DDS
 pub/sub inside one machine, `/root/reference/package.xml:11-24`); this
-module is the TPU-native multi-host story: each host runs one process,
+module is the multi-host story: each host runs one process,
 `jax.distributed.initialize` forms the global runtime, and the
 landmark-sharded Schur BA (`parallel/sharded_ba.py`) runs over the GLOBAL
 mesh — the per-iteration psum of the reduced camera system is the only
 cross-host traffic (O(K²·36) bytes, landmark elimination never leaves a
-device), which is exactly the layout that keeps collectives on ICI within
-a slice and makes the DCN hop cheap between slices.
+device), which keeps the payload small whether it crosses NVLink inside a
+host or the network between hosts.
 
-On real TPU pods each process owns its local chips and this module is used
-unchanged (jax.distributed.initialize() picks up the TPU topology with no
-arguments). On this container it is exercised with N processes × M virtual
-CPU devices and Gloo collectives — the same program, sharding and
-collective structure, minus the silicon (SURVEY.md §4 prescribes exactly
-this multi-process simulation).
+On a GPU host each process owns its own cards (`--local-devices N`:
+process p takes local cards [pN, (p+1)N), see `mesh.init_distributed`).
+Under JAX_PLATFORMS=cpu it runs with N processes × M virtual CPU devices
+and Gloo collectives — the same program, sharding and collective
+structure (SURVEY.md §4 prescribes this multi-process simulation).
 
 Run as a module, once per process:
 
@@ -31,7 +30,6 @@ from __future__ import annotations
 
 import argparse
 import json
-import os
 import time
 
 
@@ -63,33 +61,20 @@ def main(argv=None):
                     help="npz written by process 0 (R, t, cost, timing)")
     ap.add_argument("--iters", type=int, default=10)
     ap.add_argument("--local-devices", type=int, default=0,
-                    help="force N virtual CPU devices per process "
-                         "(0 = use the platform's real devices)")
+                    help="devices per process: virtual CPU devices under "
+                         "JAX_PLATFORMS=cpu, else this process's own "
+                         "accelerators (0 = one)")
     ap.add_argument("--reps", type=int, default=1,
                     help="timed repetitions (beyond the compile+warmup run)")
     args = ap.parse_args(argv)
 
-    if args.local_devices:
-        # drop any inherited device-count flag (e.g. the test harness's 8)
-        # before forcing this process's count — last flag would win, but be
-        # explicit rather than rely on that
-        kept = [f for f in os.environ.get("XLA_FLAGS", "").split()
-                if "xla_force_host_platform_device_count" not in f]
-        kept.append("--xla_force_host_platform_device_count="
-                    f"{args.local_devices}")
-        os.environ["XLA_FLAGS"] = " ".join(kept)
-    import jax
+    from orb_slam3_ros2_tpu.parallel import mesh as mesh_mod
 
-    if args.local_devices:
-        jax.config.update("jax_platforms", "cpu")
-    jax.distributed.initialize(
-        coordinator_address=args.coordinator,
-        num_processes=args.num_processes,
-        process_id=args.process_id,
-    )
+    mesh_mod.init_distributed(args.coordinator, args.num_processes,
+                              args.process_id, args.local_devices)
+    import jax
     import numpy as np
 
-    from orb_slam3_ros2_tpu.parallel import mesh as mesh_mod
     from orb_slam3_ros2_tpu.parallel import sharded_ba
 
     problem, intr = _build_problem(args.problem)

@@ -59,7 +59,7 @@ def _local_terms(R, t, X, uv, w_active, fx, fy, cx, cy):
 def _shard_step(R, t, X, uv, w, fixed, point_valid, lam, fx, fy, cx, cy):
     """One damped GN step, executed per landmark shard under shard_map.
 
-    Uses the same MXU-shaped elimination core as the single-chip solver
+    Uses the same matmul-shaped elimination core as the single-chip solver
     (`backend/schur.py`): the shard-local reduced system is one
     (6K, 3·L/n) @ (3·L/n, 6K) matmul; only (Hcc_p, S_off, rhs_p, cost)
     cross the mesh — O(K²·36) bytes, independent of landmark count."""

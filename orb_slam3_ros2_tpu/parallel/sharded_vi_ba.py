@@ -4,7 +4,7 @@ BASELINE.md north-star bullet 3 names "distributed VIBA" literally; this
 module is that solver. Layout mirrors `parallel/sharded_ba.py`:
 
 * **Visual part, landmark-sharded** — each device Schur-eliminates its
-  landmark shard (`backend/schur.schur_reduce`, the lanes-major MXU core)
+  landmark shard (`backend/schur.schur_reduce`, the lanes-major matmul core)
   and the reduced camera system is summed with one `psum` over the ``lm``
   mesh axis: O(K²·36) bytes per iteration, independent of landmark count.
 * **Inertial part, replicated** — the preintegration factors couple only

@@ -4,34 +4,45 @@ The native library replicates the reference wrapper's ingest layer (bounded
 queues with per-topic QoS drop policies + frame/IMU assembly,
 `/root/reference/src/imu_mono_realsense.cpp:116-128,322-328,348-368`) in
 C++, preprocessing images off the Python thread. A pure-Python fallback with
-identical semantics keeps tests/environments without the built .so working.
+identical semantics keeps hosts without a C++ compiler working.
 """
 
 from __future__ import annotations
 
 import ctypes
-import os
+import functools
 import threading
 from collections import deque
 from typing import List, Optional, Tuple
 
 import numpy as np
 
-_LIB_PATHS = [
-    os.path.join(os.path.dirname(__file__), "..", "..", "native",
-                 "libtpuslam_native.so"),
-    "libtpuslam_native.so",
-]
+from orb_slam3_ros2_tpu.runtime import native
+
+def _resize_bilinear(img: np.ndarray, width: int, height: int):
+    """Bilinear resize with the native feeder's sampling rule
+    (native/feeder.cpp `preprocess`)."""
+    def axis(n_out, n_in):
+        f = (np.arange(n_out, dtype=np.float32) + 0.5) * np.float32(
+            n_in / n_out) - 0.5
+        i0 = np.clip(f.astype(np.int32), 0, n_in - 1)
+        w = np.clip(f - i0, 0.0, 1.0).astype(np.float32)
+        return i0, np.minimum(i0 + 1, n_in - 1), w
+
+    y0, y1, wy = axis(height, img.shape[0])
+    x0, x1, wx = axis(width, img.shape[1])
+    img = np.asarray(img, np.float32)
+    top = img[y0][:, x0] * (1 - wx) + img[y0][:, x1] * wx
+    bot = img[y1][:, x0] * (1 - wx) + img[y1][:, x1] * wx
+    return top * (1 - wy[:, None]) + bot * wy[:, None]
 
 
-def _load_lib():
-    for p in _LIB_PATHS:
-        try:
-            lib = ctypes.CDLL(os.path.abspath(p))
-            break
-        except OSError:
-            continue
-    else:
+@functools.lru_cache(maxsize=None)
+def feeder_lib():
+    """The native library with the feeder's signatures declared, or None
+    when it cannot be built."""
+    lib = native.load()
+    if lib is None:
         return None
     lib.feeder_create.restype = ctypes.c_void_p
     lib.feeder_create.argtypes = [ctypes.c_int] * 4
@@ -62,8 +73,6 @@ def _load_lib():
     return lib
 
 
-_LIB = _load_lib()
-
 
 class NativeFeeder:
     """Timestamp-ordered frame+IMU assembly, native when available."""
@@ -74,9 +83,11 @@ class NativeFeeder:
         self.width = width
         self.height = height
         self.max_imu = max_imu_per_frame
-        self._native = _LIB is not None and not force_python
+        self._lib = feeder_lib()
+        self._native = self._lib is not None and not force_python
         if self._native:
-            self._h = _LIB.feeder_create(width, height, frame_cap, imu_cap)
+            self._h = self._lib.feeder_create(width, height, frame_cap,
+                                              imu_cap)
         else:
             self._frames: deque = deque()
             self._imu: deque = deque()
@@ -96,7 +107,7 @@ class NativeFeeder:
         img = np.ascontiguousarray(img, np.uint8)
         ch = 1 if img.ndim == 2 else img.shape[2]
         if self._native:
-            ok = _LIB.feeder_push_frame(
+            ok = self._lib.feeder_push_frame(
                 self._h, float(t),
                 img.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)),
                 img.shape[1], img.shape[0], ch,
@@ -108,10 +119,7 @@ class NativeFeeder:
                 return False
             f = img.mean(axis=2) if ch > 1 else img.astype(np.float32)
             if f.shape != (self.height, self.width):
-                import cv2
-
-                f = cv2.resize(f.astype(np.float32),
-                               (self.width, self.height))
+                f = _resize_bilinear(f, self.width, self.height)
             self._frames.append((float(t), f.astype(np.float32)))
             return True
 
@@ -119,7 +127,7 @@ class NativeFeeder:
         gyro = np.asarray(gyro, np.float64)
         acc = np.asarray(acc, np.float64)
         if self._native:
-            ok = _LIB.feeder_push_imu(
+            ok = self._lib.feeder_push_imu(
                 self._h, float(t),
                 gyro.ctypes.data_as(ctypes.POINTER(ctypes.c_double)),
                 acc.ctypes.data_as(ctypes.POINTER(ctypes.c_double)),
@@ -141,7 +149,7 @@ class NativeFeeder:
             t_out = ctypes.c_double()
             img = np.empty((self.height, self.width), np.float32)
             imu = np.empty((self.max_imu, 7), np.float64)
-            n = _LIB.feeder_next(
+            n = self._lib.feeder_next(
                 self._h, ctypes.byref(t_out),
                 img.ctypes.data_as(ctypes.POINTER(ctypes.c_float)),
                 imu.ctypes.data_as(ctypes.POINTER(ctypes.c_double)),
@@ -164,19 +172,20 @@ class NativeFeeder:
 
     def pending_frames(self) -> int:
         if self._native:
-            return int(_LIB.feeder_pending_frames(self._h))
+            return int(self._lib.feeder_pending_frames(self._h))
         with self._mu:
             return len(self._frames)
 
     def stats(self):
         if self._native:
             return {
-                "dropped_imu": int(_LIB.feeder_dropped_imu(self._h)),
-                "dropped_frames": int(_LIB.feeder_dropped_frames(self._h)),
+                "dropped_imu": int(self._lib.feeder_dropped_imu(self._h)),
+                "dropped_frames": int(
+                    self._lib.feeder_dropped_frames(self._h)),
             }
         return {"dropped_imu": self._dropped_imu,
                 "dropped_frames": self._dropped_frames}
 
     def __del__(self):
-        if getattr(self, "_native", False) and _LIB is not None:
-            _LIB.feeder_destroy(self._h)
+        if getattr(self, "_native", False):
+            self._lib.feeder_destroy(self._h)

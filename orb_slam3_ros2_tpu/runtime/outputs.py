@@ -16,35 +16,28 @@ Replicates the wrapper's post-processing with identical parameters:
 
 from __future__ import annotations
 
+import ctypes
+import functools
 import os
 from typing import Optional, Tuple
 
 import numpy as np
 
+from orb_slam3_ros2_tpu.runtime import native
 
+
+@functools.lru_cache(maxsize=None)
 def _native_filter():
     """ctypes handle for native/pcl_filters.cpp (None if lib unavailable)."""
-    global _NATIVE_FILTER
-    if "_NATIVE_FILTER" not in globals():
-        import ctypes
-
-        _NATIVE_FILTER = None
-        for p in (os.path.join(os.path.dirname(__file__), "..", "..",
-                               "native", "libtpuslam_native.so"),
-                  "libtpuslam_native.so"):
-            try:
-                lib = ctypes.CDLL(os.path.abspath(p))
-            except OSError:
-                continue
-            lib.pcl_filter.restype = ctypes.c_int
-            lib.pcl_filter.argtypes = [
-                ctypes.POINTER(ctypes.c_float), ctypes.c_int, ctypes.c_int,
-                ctypes.c_float, ctypes.c_float, ctypes.c_int,
-                ctypes.POINTER(ctypes.c_uint8),
-            ]
-            _NATIVE_FILTER = lib
-            break
-    return _NATIVE_FILTER
+    lib = native.load()
+    if lib is not None:
+        lib.pcl_filter.restype = ctypes.c_int
+        lib.pcl_filter.argtypes = [
+            ctypes.POINTER(ctypes.c_float), ctypes.c_int, ctypes.c_int,
+            ctypes.c_float, ctypes.c_float, ctypes.c_int,
+            ctypes.POINTER(ctypes.c_uint8),
+        ]
+    return lib
 
 
 def filter_point_cloud(

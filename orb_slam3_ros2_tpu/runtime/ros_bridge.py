@@ -14,7 +14,7 @@ rtabmap stack inserts (`launch/rtabmap.launch.py:67-84`).
 This container has no rclpy; the module is import-gated so the same code
 runs as a real ROS 2 node where ROS is present and is unit-tested through
 `SlamSession` here. The engine never depends on ROS — matching the target
-architecture (thin host feeder into the TPU engine, BASELINE.json).
+architecture (thin host feeder into the JAX engine, BASELINE.json).
 """
 
 from __future__ import annotations
@@ -42,12 +42,12 @@ if HAVE_ROS:  # pragma: no cover - requires a ROS 2 environment
     from orb_slam3_ros2_tpu.runtime.session import SlamSession
     from orb_slam3_ros2_tpu.runtime.system import ImuPoint, Sensor
 
-    class TpuSlamNode(Node):
-        """`imu_mono_node_cpp` equivalent backed by the TPU engine."""
+    class SlamNode(Node):
+        """`imu_mono_node_cpp` equivalent backed by the JAX engine."""
 
         def __init__(self, settings_path: str, sensor: str = "imu_monocular",
                      output_name: Optional[str] = None):
-            super().__init__("tpu_slam_node")
+            super().__init__("orb_slam3_node")
             mode = (Sensor.IMU_MONOCULAR if "imu" in sensor
                     else Sensor.MONOCULAR)
             self.session = SlamSession(
@@ -253,7 +253,7 @@ if HAVE_ROS:  # pragma: no cover - requires a ROS 2 environment
         import sys
 
         rclpy.init(args=args)
-        node = TpuSlamNode(sys.argv[1])
+        node = SlamNode(sys.argv[1])
         try:
             rclpy.spin(node)
         finally:

@@ -3,7 +3,8 @@
 The reference toggles a Pangolin GL window with the `use_pangolin` param
 (`/root/reference/src/imu_mono_realsense.cpp:59,100`) showing the live
 trajectory, map points, and current camera. A GL window makes no sense on a
-TPU host; the TPU-native equivalent is a zero-dependency HTTP viewer: a
+headless accelerator host; the equivalent here is a zero-dependency HTTP
+viewer: a
 background thread serves a self-contained HTML canvas page that polls
 `/state.json` (current pose, keyframe trail, subsampled map cloud,
 tracking-state counters) and renders a top-down + side orthographic view.

@@ -72,8 +72,9 @@ def main():
 
     if args.platform:
         jax.config.update("jax_platforms", args.platform)
-    jax.config.update("jax_compilation_cache_dir", "/tmp/jax_cache_bench")
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.0)
+    from orb_slam3_ros2_tpu.utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
     import jax.numpy as jnp
 
     from orb_slam3_ros2_tpu.frontend import extractor as ex

@@ -12,7 +12,7 @@ rooms — assigns words with the shipped 10^4-leaf tree
 sparse path, and reports recall + measured per-query cost.
 
     python scripts/bench_pr_mapscale.py --out PR_RECALL_10K.json
-    (extraction of ~10k frames: run on the TPU; --platform cpu for CI)
+    (extraction of ~10k frames: run on the GPU; --platform cpu for CI)
 """
 
 from __future__ import annotations
@@ -42,15 +42,16 @@ def main():
     ap.add_argument("--out", default=None)
     ap.add_argument("--platform", default=None,
                     help="force a jax platform (e.g. cpu); default: leave "
-                         "the environment's (TPU when attached)")
+                         "the environment's (the GPU when attached)")
     args = ap.parse_args()
 
     import jax
 
     if args.platform:
         jax.config.update("jax_platforms", args.platform)
-    jax.config.update("jax_compilation_cache_dir", "/tmp/jax_cache_bench")
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.0)
+    from orb_slam3_ros2_tpu.utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
     import jax.numpy as jnp
 
     from orb_slam3_ros2_tpu.frontend import extractor as ex

@@ -17,11 +17,6 @@ import numpy as np
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-if os.environ.get("JAX_PLATFORMS"):
-    import jax
-
-    jax.config.update("jax_platforms", os.environ["JAX_PLATFORMS"])
-
 
 def _load_cloud(path: str) -> np.ndarray:
     from orb_slam3_ros2_tpu.runtime.outputs import load_pcd

@@ -32,10 +32,6 @@ import time
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-if os.environ.get("JAX_PLATFORMS"):
-    import jax
-
-    jax.config.update("jax_platforms", os.environ["JAX_PLATFORMS"])
 
 import numpy as np
 

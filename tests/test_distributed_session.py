@@ -8,7 +8,7 @@ its own camera segment with the complete System, the fixed-capacity Atlas
 maps are exchanged with one cross-process allgather, welded with a
 deterministic Sim3 merge, and the merged map is refined by the
 landmark-sharded GBA over the GLOBAL 8-device mesh (psum across the two
-processes — the DCN path between real TPU hosts).
+processes — the path a multi-host run takes).
 
 Reference contrast: single-host multi-session Atlas merge only [upstream
 LoopClosing::MergeLocal]; the wrapper's only multi-process structure is

@@ -157,52 +157,3 @@ def test_match_respects_gate_and_mask():
     # masking out B rows kills matches
     res2 = matcher.match(signs, mask, signs, jnp.zeros((8,), bool))
     assert (np.asarray(res2.idx) == -1).all()
-
-
-def test_moment_maps_match_patch_orientations():
-    """Full-image cumsum moments == patch-gather IC moments on the interior
-    (the extractor reads them only at keypoints >= EDGE from the border)."""
-    rng = np.random.default_rng(7)
-    img = jnp.asarray(rng.uniform(0, 255, (96, 128)).astype(np.float32))
-    ys = rng.integers(20, 76, 40)
-    xs = rng.integers(20, 108, 40)
-    yx = jnp.stack([jnp.asarray(ys), jnp.asarray(xs)], -1).astype(jnp.int32)
-
-    patches = desc_ops.gather_patches(img, yx)
-    want = np.asarray(desc_ops.orientations(patches))
-
-    m01, m10 = desc_ops.moment_maps(img)
-    got = np.asarray(jnp.arctan2(m01[yx[:, 0], yx[:, 1]],
-                                 m10[yx[:, 0], yx[:, 1]]))
-    # f32 prefix-sum cancellation bounds agreement at ~2e-3 rad — far below
-    # the descriptor's 2π/64 ≈ 0.098 rad steering bin width
-    np.testing.assert_allclose(got, want, atol=5e-3)
-
-
-def test_block_gather_matches_dynamic_slice():
-    """The TPU block-gather (two adjacent 128-lane blocks + one-hot column
-    select) must reproduce the per-keypoint dynamic-slice gather, including
-    windows that straddle block boundaries and the last partial block."""
-    import numpy as np
-    import jax.numpy as jnp
-    from orb_slam3_ros2_tpu.ops import orb_descriptor as desc_ops
-
-    rng = np.random.default_rng(7)
-    H, W = 96, 300  # W deliberately NOT a multiple of 128
-    img = rng.uniform(0, 255, (H, W)).astype(np.float32)
-    img2 = rng.uniform(0, 255, (H, W)).astype(np.float32)
-    ys = rng.integers(16, H - 16, 64)
-    xs = np.concatenate([
-        rng.integers(16, W - 16, 56),
-        np.array([16, 112, 127, 128, 140, 255, 256, W - 16]),  # boundaries
-    ])[:64]
-    yx = jnp.asarray(np.stack([ys, xs], -1), jnp.int32)
-    ref1, ref2 = (desc_ops.gather_patches(jnp.asarray(img), yx),
-                  desc_ops.gather_patches(jnp.asarray(img2), yx))
-    got1, got2 = desc_ops._gather_patches_block(
-        (jnp.asarray(img), jnp.asarray(img2)), yx)
-    # bf16 rounding of the pixel values is the only difference
-    np.testing.assert_allclose(np.asarray(got1), np.asarray(ref1),
-                               rtol=0.01, atol=1.0)
-    np.testing.assert_allclose(np.asarray(got2), np.asarray(ref2),
-                               rtol=0.01, atol=1.0)

@@ -3,12 +3,12 @@
 import numpy as np
 import pytest
 
-from orb_slam3_ros2_tpu.runtime.feeder import _LIB, NativeFeeder
+from orb_slam3_ros2_tpu.runtime.feeder import NativeFeeder, feeder_lib
 
 
 @pytest.fixture(params=["native", "python"])
 def feeder(request):
-    if request.param == "native" and _LIB is None:
+    if request.param == "native" and feeder_lib() is None:
         pytest.skip("native library not built")
     return NativeFeeder(
         width=32, height=24, frame_cap=3, imu_cap=8,

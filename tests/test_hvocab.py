@@ -2,7 +2,7 @@
 
 The reference's vocabulary is a ~1M-word hierarchical DBoW2 tree
 (`/root/reference/src/imu_mono_realsense.cpp:52-53`); these tests cover the
-TPU-native counterpart: tree training/assignment consistency, format
+counterpart: tree training/assignment consistency, format
 round-trips, sparse-database scoring equivalence against the dense BoW
 pipeline, and retrieval sanity at scale.
 """

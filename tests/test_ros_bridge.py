@@ -282,7 +282,7 @@ def test_slam_node_tracks_images_and_publishes_odom(bridge, tmp_path):
         n_frames=8, width=320, height=240, fx=260.0, fy=260.0,
         fps=10.0, seed=1, plane_depths=(6.0, 9.0), traj_scale=1.6,
     )
-    node = bridge.TpuSlamNode(SETTINGS, sensor="monocular",
+    node = bridge.SlamNode(SETTINGS, sensor="monocular",
                               output_name="verify_rosbridge")
     img_cb = node.subs["camera/camera/color/image_raw"]
     imu_cb = node.subs["camera/camera/imu"]

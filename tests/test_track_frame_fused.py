@@ -101,7 +101,7 @@ def test_fused_matches_staged(setup, perturb):
 
 
 def test_lost_boundary_stage1_threshold(setup):
-    """ADVICE r3 (medium): when stage-1 pose opt falls below the low
+    """When stage-1 pose opt falls below the low
     stage-1 bar, the fused path must surface the stage-1 result unchanged
     (so the host declares LOST and relocalizes), never a stage-2 'rescue'
     re-matched at the garbage pose."""

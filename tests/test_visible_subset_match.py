@@ -1,7 +1,7 @@
 """Visible-subset matching (constant-cost search-by-projection for large
 maps): equivalence with the dense path when the frustum fits the buffer,
 graceful truncation when it does not (SURVEY.md E3 grid-bucketed candidate
-generation, TPU-native as one top_k + gather)."""
+generation, as one top_k + gather)."""
 
 import jax.numpy as jnp
 import numpy as np
